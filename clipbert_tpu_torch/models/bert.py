@@ -1,0 +1,118 @@
+"""BERT encoder stack (port of clipbert_tpu/models/bert.py, inference path).
+
+Post-LN transformer (reference vendored HF-2.11 BERT,
+`src/modeling/transformers.py`): softmax(QK^T/sqrt(d)+mask)V attention,
+exact-GELU FFN, tanh CLS pooler. Matmuls run in the compute dtype with fp32
+accumulation (ops/linear.py); LayerNorm statistics and softmax run in fp32.
+
+The JAX package stacks the 12 layers along a leading axis for ``lax.scan``;
+here they are an ``nn.ModuleList`` run by a Python loop. Module and
+parameter names follow the JAX parameter tree (``attention.self.query``,
+``output.ln``, ...) so ckpt/from_jax.py maps one onto the other by name.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from clipbert_tpu_torch.core.config import ModelConfig
+from clipbert_tpu_torch.ops.activations import ACT2FN
+from clipbert_tpu_torch.ops.attention import SelfAttention, multi_head_attention
+from clipbert_tpu_torch.ops.layernorm import layer_norm
+from clipbert_tpu_torch.ops.linear import linear
+
+
+class TextEmbeddings(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        D = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, D)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, D)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, D)
+        self.ln = nn.LayerNorm(D)
+
+
+class _DenseLN(nn.Module):
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.dense = nn.Linear(d_in, d_out)
+        self.ln = nn.LayerNorm(d_out)
+
+
+class _Attention(nn.Module):
+    def __init__(self, D: int):
+        super().__init__()
+        self.self = SelfAttention(D)
+        self.output = _DenseLN(D, D)
+
+
+class _Intermediate(nn.Module):
+    def __init__(self, D: int, I: int):
+        super().__init__()
+        self.dense = nn.Linear(D, I)
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        D, I = cfg.hidden_size, cfg.intermediate_size
+        self.attention = _Attention(D)
+        self.intermediate = _Intermediate(D, I)
+        self.output = _DenseLN(I, D)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.layers = nn.ModuleList(BertLayer(cfg)
+                                    for _ in range(cfg.num_hidden_layers))
+
+
+class Pooler(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+
+def text_embeddings(p: TextEmbeddings, input_ids: torch.Tensor,
+                    cfg: ModelConfig, compute_dtype) -> torch.Tensor:
+    """word + absolute-position + token-type(0) embeddings, then LN in the
+    compute dtype (reference BertEmbeddings, transformers.py:151-199)."""
+    L = input_ids.shape[1]
+    emb = p.word_embeddings.weight[input_ids]
+    emb = emb + p.position_embeddings.weight[:L][None, :, :]
+    emb = emb + p.token_type_embeddings.weight[0][None, None, :]
+    return layer_norm(emb.to(compute_dtype), p.ln.weight, p.ln.bias,
+                      cfg.layer_norm_eps)
+
+
+def extended_attention_mask(mask: torch.Tensor) -> torch.Tensor:
+    """(B, L) {0,1} mask -> additive fp32 bias (B, 1, 1, L), HF's
+    (1-mask)*-10000 convention."""
+    return ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+
+
+def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
+            cfg: ModelConfig, fused_attn: bool = False) -> torch.Tensor:
+    """The post-LN layer stack (reference BertEncoder,
+    transformers.py:429-461)."""
+    act = ACT2FN[cfg.hidden_act]
+    eps = cfg.layer_norm_eps
+    for lp in p.layers:
+        ctx = multi_head_attention(hidden, lp.attention.self,
+                                   cfg.num_attention_heads, mask_bias,
+                                   fused=fused_attn)
+        ao = lp.attention.output
+        a = linear(ctx, ao.dense)
+        hidden = layer_norm(a + hidden, ao.ln.weight, ao.ln.bias, eps)
+        inter = act(linear(hidden, lp.intermediate.dense))
+        out = linear(inter, lp.output.dense)
+        hidden = layer_norm(out + hidden, lp.output.ln.weight,
+                            lp.output.ln.bias, eps)
+    return hidden
+
+
+def pooler(p: Pooler, hidden: torch.Tensor) -> torch.Tensor:
+    """tanh(W * h[CLS]) (reference BertPooler, transformers.py:464-476)."""
+    return torch.tanh(linear(hidden[:, 0], p.dense))

@@ -1,0 +1,49 @@
+"""Dense layer primitive (port of clipbert_tpu/ops/linear.py, fp path).
+
+The JAX recipe: operands in the activation dtype (bf16 on the serving path),
+fp32 accumulation, fp32 bias add, ONE cast back to the activation dtype.
+``torch.mm``/``torch.bmm`` on bf16 CUDA tensors would round the product to
+bf16 before the bias add; ``out_dtype=torch.float32`` keeps the fp32
+accumulator instead. CPU builds have no such overload, so there the bf16
+operands are widened to fp32 first, which gives the same numbers: a product
+of two bf16 values is exact in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def _f32_product(op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return op(a, b)
+    if a.is_cuda:
+        return op(a, b, out_dtype=torch.float32)
+    return op(a.float(), b.float())
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) -> fp32 (M, N), fp32 accumulation, no rounding."""
+    return _f32_product(torch.mm, a, b)
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, M, K) @ (N, K, P) -> fp32 (N, M, P), fp32 accumulation."""
+    return _f32_product(torch.bmm, a, b)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ weight.T + bias with ``weight`` in nn.Linear's (out, in) layout;
+    the result is in x's dtype."""
+    y = mm_f32(x.reshape(-1, x.shape[-1]), weight.to(x.dtype).t())
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(x.shape[:-1] + (weight.shape[0],))
+
+
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    return dense(x, layer.weight, layer.bias)
