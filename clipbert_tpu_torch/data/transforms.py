@@ -1,5 +1,7 @@
 """Device resize + pad + normalize (port of the device half of
-clipbert_tpu/data/transforms.py).
+clipbert_tpu/data/transforms.py), and copies of its host numpy helpers
+(``resize_frames``, ``pad_frames``, ``is_extreme_aspect_ratio``,
+``collate_visual``).
 
 Reference contracts: resize the longer side to max_size, bilinear with
 align_corners=False (`data_utils.py:230-233`, get_resize_size :166-197 with
@@ -15,7 +17,7 @@ Native-size uint8 frames cross to the device, not 448^2 floats.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +37,71 @@ def get_resize_size(h: int, w: int, max_size: int) -> Tuple[int, int]:
     return int(new_h), int(new_w)
 
 
+def resize_frames(frames: np.ndarray, max_size: int) -> np.ndarray:
+    """Bilinear resize, longer side -> max_size, align_corners=False.
+
+    frames: (T, H, W, C) uint8 -> (T, H', W', C) uint8, through torch's
+    interpolate on the host for exact parity with the reference transform
+    (data_utils.py:230-233)."""
+    T, H, W, C = frames.shape
+    new_h, new_w = get_resize_size(H, W, max_size)
+    if (new_h, new_w) == (H, W):
+        return frames
+    if not frames.flags.writeable:   # e.g. mmap-backed store views
+        frames = frames.copy()
+    t = torch.from_numpy(np.ascontiguousarray(frames)).permute(0, 3, 1, 2)
+    t = torch.nn.functional.interpolate(
+        t.float(), size=(new_h, new_w), mode="bilinear", align_corners=False)
+    out = t.round_().clamp_(0, 255).byte().permute(0, 2, 3, 1).numpy()
+    return np.ascontiguousarray(out)
+
+
+def pad_frames(frames: np.ndarray, max_h: int, max_w: int) -> np.ndarray:
+    """Zero-pad (T, H, W, C) at bottom/right to (T, max_h, max_w, C)
+    (data_utils.py:112-133, keep image at upper-left corner)."""
+    T, H, W, C = frames.shape
+    if (H, W) == (max_h, max_w):
+        return frames
+    out = np.zeros((T, max_h, max_w, C), dtype=frames.dtype)
+    out[:, :H, :W] = frames
+    return out
+
+
+def is_extreme_aspect_ratio(h: int, w: int, max_ratio: float = 5.0) -> bool:
+    """dataset_base.py:228-233 guard."""
+    r = h / float(w)
+    return r > max_ratio or r < 1.0 / max_ratio
+
+
 # reference configs (RGB order; the RGB->BGR flip is folded into imported
 # stem-conv weights)
 IMAGENET_MEAN_255 = (123.675, 116.28, 103.53)
 IMAGENET_STD_1 = (1.0, 1.0, 1.0)
 
 _BUCKET = 64   # native frames zero-pad up to this granularity (serve.py)
+
+
+def collate_visual(batch: List[Dict]) -> Tuple[np.ndarray,
+                                               Optional[np.ndarray]]:
+    """Stack per-item visuals for a batch.
+
+    Host-preprocessed items ({"vis": (T,S,S,3)}) stack directly. Native
+    items ({"vis": (T,H,W,3), "vis_hw": (4,) int32}) are packed into a
+    zero buffer bucket (max size rounded up to 64) for the device resize
+    path; returns (buffer, (B,4) src_hw) in that case, else (stack, None).
+    """
+    if "vis_hw" not in batch[0]:
+        return np.stack([d["vis"] for d in batch]), None
+    vis = [d["vis"] for d in batch]
+    hw = np.stack([d["vis_hw"] for d in batch]).astype(np.int32)
+    Hb = -(-max(v.shape[1] for v in vis) // _BUCKET) * _BUCKET
+    Wb = -(-max(v.shape[2] for v in vis) // _BUCKET) * _BUCKET
+    T = vis[0].shape[0]
+    buf = np.zeros((len(vis), T, Hb, Wb, vis[0].shape[3]), vis[0].dtype)
+    for i, v in enumerate(vis):
+        assert v.shape[0] == T, "clip count must be uniform within a batch"
+        buf[i, :, :v.shape[1], :v.shape[2]] = v
+    return buf, hw
 
 
 def _normalize(x: torch.Tensor, mean: Sequence[float],

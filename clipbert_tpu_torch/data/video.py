@@ -5,7 +5,7 @@ The reference decodes H.264 etc. via PyAV->FFmpeg with PTS-seek selective
 decoding (`src/datasets/decoder.py:63-201`,
 `dataset_base.py:110-150`). The TPU build keeps decode on the CPU host
 behind a `decode_clip` interface whose sampling semantics come from the
-shared pure math in `clipbert_tpu.data.sampling`:
+shared pure math in this package's `data/sampling.py`:
 
  - **native**: C++ FFmpeg decoder (`native/libclipbert_data.so`, built by
    `make -C native`) — frame-accurate range decode with internal seek,

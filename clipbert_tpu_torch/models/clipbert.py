@@ -139,9 +139,13 @@ def mlp_head(p: MLPHead, pooled: torch.Tensor) -> torch.Tensor:
 
 
 def cnn_forward(p: resnet.GridFeatBackbone, visual_pixels: torch.Tensor,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """(B, T, H, W, 3) preprocessed pixels -> (B, T, Hg, Wg, D) grid feats."""
-    return resnet.grid_feat_forward(p, visual_pixels.to(compute_dtype))
+                compute_dtype=torch.bfloat16,
+                use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """(B, T, H, W, 3) preprocessed pixels -> (B, T, Hg, Wg, D) grid feats.
+    ``use_kernels``: the CNN's kernel form (resnet.resnet50_forward); None
+    takes it on a CUDA device."""
+    return resnet.grid_feat_forward(p, visual_pixels.to(compute_dtype),
+                                    use_kernels)
 
 
 def fold_cnn_bn_scales(model: ClipBert) -> ClipBert:

@@ -8,7 +8,9 @@ ReLU, giving (B, n_frm, H/64, W/64, hidden) channels-last grid features.
 Public functions keep the JAX package's NHWC layout; inside, activations
 are NCHW tensors in ``channels_last`` memory (an NHWC buffer viewed as
 NCHW, so the permutes at the edges are free). Convolutions are
-``torch.nn.functional.conv2d`` in the compute dtype. Frozen BN is a
+``torch.nn.functional.conv2d`` in the compute dtype, except in the kernel
+form (``use_kernels``), where the stem and the 1x1 convs run the port's
+hand-written CUDA kernels on NHWC buffers. Frozen BN is a
 per-channel (scale, bias) buffer pair; :func:`fold_bn_scales` folds the
 scale into the conv weight for inference. Blocks are detectron2's
 caffe-style bottlenecks (``stride_in_1x1=True``: the stride sits on the 1x1
@@ -17,9 +19,15 @@ reduce conv), as every config of this repo uses.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from clipbert_tpu_torch.ops import kernels_default
+from clipbert_tpu_torch.ops.fused_stem_pool import fused_stem_pool
+from clipbert_tpu_torch.ops.matmul_bn_act import conv1x1_bn_act
 
 # (num_blocks, bottleneck_channels, out_channels) per stage res2..res5
 R50_STAGES = ((3, 64, 256), (4, 128, 512), (6, 256, 1024), (3, 512, 2048))
@@ -140,17 +148,59 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
     return F.max_pool2d(x, window, stride, padding)
 
 
-def resnet50_forward(p: ResNet50, x: torch.Tensor) -> torch.Tensor:
+def bottleneck_kernels(x: torch.Tensor, p: Bottleneck,
+                       stride: int) -> torch.Tensor:
+    """The kernel form of :func:`bottleneck` (counterpart of JAX's
+    ``bottleneck_pallas``, clipbert_tpu/models/resnet.py:181-213), NHWC in
+    and out: conv1 and the shortcut are fused 1x1 GEMMs with the BN epilogue
+    (ops/matmul_bn_act.py), conv3 fuses the residual add and ReLU too; the
+    3x3 conv2 stays cuDNN + bias + ReLU, as JAX keeps it on XLA."""
+    out = conv1x1_bn_act(x, p.conv1.weight, p.conv1.bn.scale,
+                         p.conv1.bn.bias, stride=stride, relu=True)
+    out = torch.relu(frozen_bn(conv2d(_nchw(out), p.conv2.weight,
+                                      padding=1), p.conv2.bn))
+    sc = x
+    if p.shortcut is not None:
+        sc = conv1x1_bn_act(x, p.shortcut.weight, p.shortcut.bn.scale,
+                            p.shortcut.bn.bias, stride=stride, relu=False)
+    return conv1x1_bn_act(_nhwc(out), p.conv3.weight, p.conv3.bn.scale,
+                          p.conv3.bn.bias, residual=sc, relu=True)
+
+
+def _stages(p: ResNet50):
+    for si in range(4):
+        for bi, bp in enumerate(getattr(p, f"res{si + 2}")):
+            yield bp, (1 if si == 0 else 2) if bi == 0 else 1
+
+
+def resnet50_forward(p: ResNet50, x: torch.Tensor,
+                     use_kernels: Optional[bool] = None) -> torch.Tensor:
     """(B, H, W, 3) preprocessed pixels -> (B, H/32, W/32, 2048) res5
     features, NHWC (reference backbone + get_conv5_features,
-    grid_feat.py:95-97, with RES5_DILATION=1)."""
+    grid_feat.py:95-97, with RES5_DILATION=1).
+
+    ``use_kernels`` (the counterpart of JAX's ``use_pallas``): True runs the
+    stem through ops/fused_stem_pool.py and the 1x1 convs through
+    ops/matmul_bn_act.py (:func:`bottleneck_kernels`); False runs the cuDNN
+    form; None picks the kernel form on a CUDA device. Both take folded and
+    unfolded BN. The two forms round bf16 at other points (one rounding per
+    fused 1x1 against one per conv, bias add and residual add), so they
+    differ by about one bf16 ulp per layer."""
+    if use_kernels is None:
+        use_kernels = kernels_default(x.device)
+    if use_kernels:
+        weight = p.stem.conv.weight
+        if p.stem.bn.scale is not None:
+            weight = weight * p.stem.bn.scale[:, None, None, None]
+        h = fused_stem_pool(x, weight, p.stem.bn.bias)
+        for bp, stride in _stages(p):
+            h = bottleneck_kernels(h, bp, stride)
+        return h
     h = conv2d(_nchw(x), p.stem.conv.weight, stride=2, padding=3)
     h = torch.relu(frozen_bn(h, p.stem.bn))
     h = max_pool(h, 3, 2, 1)
-    for si in range(4):
-        for bi, bp in enumerate(getattr(p, f"res{si + 2}")):
-            stride = (1 if si == 0 else 2) if bi == 0 else 1
-            h = bottleneck(h, bp, stride)
+    for bp, stride in _stages(p):
+        h = bottleneck(h, bp, stride)
     return _nhwc(h)
 
 
@@ -161,13 +211,14 @@ def grid_encoder_forward(p: GridEncoder, feat: torch.Tensor) -> torch.Tensor:
     return _nhwc(torch.relu(max_pool(h, 2, 2)))
 
 
-def grid_feat_forward(p: GridFeatBackbone,
-                      frames: torch.Tensor) -> torch.Tensor:
+def grid_feat_forward(p: GridFeatBackbone, frames: torch.Tensor,
+                      use_kernels: Optional[bool] = None) -> torch.Tensor:
     """(B, T, H, W, 3) -> (B, T, H/64, W/64, hidden) grid features; the
-    frame axis folds into the batch (grid_feat.py:90-102)."""
+    frame axis folds into the batch (grid_feat.py:90-102). ``use_kernels``
+    as in :func:`resnet50_forward`."""
     B, T, H, W, C = frames.shape
     x = frames.reshape(B * T, H, W, C)
-    feat = resnet50_forward(p.resnet, x)
+    feat = resnet50_forward(p.resnet, x, use_kernels)
     grid = grid_encoder_forward(p.grid_encoder, feat)
     _, Hg, Wg, D = grid.shape
     return grid.reshape(B, T, Hg, Wg, D)

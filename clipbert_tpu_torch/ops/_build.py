@@ -19,6 +19,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -35,27 +36,49 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def library_path(name: str) -> Path:
-    """The shared library for ``csrc/<name>.cu``, built if missing. A failed
-    build raises with nvcc's output; the compiler's report (registers,
-    shared memory, spills) is kept beside the library as ``.log``."""
+def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}_{digest}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)      # atomic: a concurrent build never sees a torn file
-    return so
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_libraries(names) -> Dict[str, Path]:
+    """Build every missing ``csrc/<name>.cu`` of ``names``, one ``nvcc``
+    per source, all started together; returns {name: library path}. A
+    failed build raises with nvcc's output; the compiler's report
+    (registers, shared memory, spills) is kept beside each library as
+    ``.log``."""
+    paths = {name: _target(name) for name in names}
+    procs = {}
+    for name, so in paths.items():
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed with exit code {proc.returncode}: "
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        so = paths[name]
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)  # atomic: a concurrent build never sees a torn file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def library_path(name: str) -> Path:
+    """The shared library for ``csrc/<name>.cu``, built if missing."""
+    return build_libraries([name])[name]
 
 
 @functools.cache

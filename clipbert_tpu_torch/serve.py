@@ -10,7 +10,8 @@
    POST /score {"video_b64", "captions"} -> {"probs"}.
 
 On a CUDA device the scoring step runs the hand-written fused attention
-kernel (ops/fused_attention.py). ``--device`` defaults to cuda and there is
+kernel (ops/fused_attention.py) and the encode runs the CNN's kernel form
+(ops/fused_stem_pool.py, ops/matmul_bn_act.py). ``--device`` defaults to cuda and there is
 no CPU fallback: a missing card is an error.
 
 Thread-safety: after __init__ the scorer is read-only (the model is never
@@ -142,7 +143,9 @@ class RetrievalScorer(_ResidentVideoScorer):
     ``score_agg_func``: the eval-protocol math.
 
     The scorer takes ownership of ``model``: BN folding and the move to
-    ``device`` happen in place.
+    ``device`` happen in place. ``use_kernels`` picks the CNN's form
+    (models/resnet.py::resnet50_forward); None runs the kernel form on a
+    CUDA device.
     """
 
     def __init__(self, model: clipbert.ClipBert, model_cfg: ModelConfig,
@@ -152,7 +155,8 @@ class RetrievalScorer(_ResidentVideoScorer):
                  max_captions: int = 32, score_agg_func: str = "lse",
                  mean=transforms.IMAGENET_MEAN_255,
                  std=transforms.IMAGENET_STD_1,
-                 compute_dtype=torch.bfloat16, fold_bn: bool = True):
+                 compute_dtype=torch.bfloat16, fold_bn: bool = True,
+                 use_kernels: Optional[bool] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda requested but CUDA is not "
@@ -172,7 +176,8 @@ class RetrievalScorer(_ResidentVideoScorer):
         ts = steps.TaskSettings(head_type="retrieval",
                                 loss_type=model_cfg.loss_type,
                                 score_agg_func=score_agg_func)
-        self._encode = steps.make_visual_encode_step(compute_dtype)
+        self._encode = steps.make_visual_encode_step(compute_dtype,
+                                                     use_kernels)
         self._prob = steps.make_text_prob_step(model_cfg, ts, compute_dtype)
 
     @classmethod
@@ -181,6 +186,7 @@ class RetrievalScorer(_ResidentVideoScorer):
                         ) -> "RetrievalScorer":
         """Load a JAX deploy checkpoint (.npz, flat ``a/b/0/c`` keys)
         through the weight bridge (ckpt/from_jax.py)."""
+        from clipbert_tpu_torch.ckpt.checkpoint import load_flat
         from clipbert_tpu_torch.ckpt.from_jax import load_jax_params
         if not e2e_weights_path.endswith(".npz"):
             raise ValueError(f"{e2e_weights_path}: only JAX deploy "
@@ -192,8 +198,7 @@ class RetrievalScorer(_ResidentVideoScorer):
             raise RuntimeError("device cuda requested but CUDA is not "
                                "available")
         model = clipbert.empty_clipbert(model_cfg, device=device)
-        with np.load(e2e_weights_path) as z:
-            load_jax_params(model, {k: z[k] for k in z.files})
+        load_jax_params(model, load_flat(e2e_weights_path))
         tok = BertTokenizer.from_dir(tokenizer_dir)
         return cls(model, model_cfg, tok, device=device, **kw)
 

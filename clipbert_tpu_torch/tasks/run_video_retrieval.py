@@ -1,0 +1,266 @@
+"""Text-to-video retrieval inference (MSRVTT / DiDeMo / ActivityNet): port
+of clipbert_tpu/tasks/run_video_retrieval.py, ``--do_inference 1`` only.
+
+Full-matrix inference: every video scored against every caption, R1/R5/
+R10/MedR/MeanR both directions (reference run_video_retrieval.py:519-625,
+:628-734). Each video's ``inference_n_clips`` clips are CNN-encoded once
+(on a CUDA device through the CNN's kernel form: the fused stem and the
+fused 1x1 convs) and the cached grid features are reused across all
+caption minibatches, scored through the fused attention kernel.
+
+One process drives one device: the JAX runner's mesh, data sharding and
+cross-host gather have no counterpart here. Training is a later slice of
+the port: ``main`` refuses it.
+
+Annotation jsonl: eval rows {"vid_id", "txt"}; a caption's id is its line
+index.
+
+    python -m clipbert_tpu_torch.tasks.run_video_retrieval \\
+        --config configs/msrvtt_ret_base_resnet50.json --do_inference 1 \\
+        --output_dir <dir with model_step_N.npz> [--device cpu]
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from contextlib import nullcontext
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from clipbert_tpu_torch.core.config import (ModelConfig, RunConfig,
+                                            inject_task_attrs,
+                                            load_run_config)
+from clipbert_tpu_torch.data import transforms
+from clipbert_tpu_torch.data.datasets import VideoRetrievalEvalDataset
+from clipbert_tpu_torch.evaluation import metrics as eval_metrics
+from clipbert_tpu_torch.models import clipbert
+from clipbert_tpu_torch.tasks import common
+from clipbert_tpu_torch.train import steps
+from clipbert_tpu_torch.utils.basic import load_jsonl, save_json
+
+LOGGER = logging.getLogger(__name__)
+
+
+def _to_device(arr: Optional[np.ndarray], device: torch.device,
+               stream: Optional[torch.cuda.Stream]):
+    """Host array -> device tensor. On CUDA the copy comes from pinned
+    memory on the loader thread's side ``stream``, so it overlaps the
+    scoring that the main stream runs meanwhile."""
+    if arr is None:
+        return None
+    t = torch.from_numpy(arr)
+    if stream is None:
+        return t.to(device)
+    with torch.cuda.stream(stream):
+        return t.pin_memory().to(device, non_blocking=True)
+
+
+def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
+                        model: clipbert.ClipBert,
+                        eval_ds: VideoRetrievalEvalDataset, compute_dtype,
+                        stage_stats: Optional[Dict] = None, *,
+                        use_kernels: Optional[bool] = None) -> Dict:
+    """Full (n_videos x n_captions) score matrix with cached visual features.
+
+    Scores are the softmax positive-class probability for ce heads and the
+    sigmoid for rank heads (run_video_retrieval.py:679-682), pooled over
+    clips by cfg.score_agg_func. Videos are decoded by a threaded loader and
+    scored cfg.inference_video_batch_size at a time: (videos x clips x
+    texts) fold into one BERT batch, whose attention runs the fused kernel
+    on a CUDA device. ``use_kernels`` picks the CNN's form
+    (models/resnet.py::resnet50_forward; None: the kernel form on a CUDA
+    device).
+
+    ``stage_stats``: optional dict filled with per-stage wall seconds summed
+    over the video loop: ``data_wait_s`` (blocked on decode + H2D from the
+    loader threads), ``dispatch_s`` (preprocess/encode/score launches; the
+    D2H copies of the scores start in the loop), ``fetch_s`` (the deferred
+    post-loop wait for the scores, which waits out whatever compute is still
+    queued), plus ``setup_s``, ``n_groups`` and the loader threads' own
+    ``decode_s`` (dataset + collate) and ``put_s`` (issuing the H2D copy).
+    """
+    t_setup = time.perf_counter()
+    device = next(model.parameters()).device
+    on_cuda = device.type == "cuda"
+    ts = steps.TaskSettings(head_type="retrieval", loss_type=cfg.loss_type,
+                            score_agg_func=cfg.score_agg_func,
+                            train_n_clips=cfg.inference_n_clips)
+    encode_fn = steps.make_visual_encode_step(compute_dtype, use_kernels)
+    prob_fn = steps.make_text_prob_step(model_cfg, ts, compute_dtype)
+    mean, std = common.pixel_mean_std(cfg)
+
+    caps = eval_ds.encode_all_captions()
+    n_caps = caps["text_input_ids"].shape[0]
+    bsz = cfg.inference_batch_size
+    # every minibatch has one fixed shape: the last one repeats its last row
+    # and the extra columns are sliced off by n_valid
+    cap_batches = []
+    for s in range(0, n_caps, bsz):
+        ids = caps["text_input_ids"][s:s + bsz]
+        mask = caps["text_input_mask"][s:s + bsz]
+        n_valid = len(ids)
+        if n_valid < bsz:
+            pad = bsz - n_valid
+            ids = np.concatenate([ids, np.repeat(ids[-1:], pad, 0)])
+            mask = np.concatenate([mask, np.repeat(mask[-1:], pad, 0)])
+        cap_batches.append((torch.from_numpy(ids).to(device),
+                            torch.from_numpy(mask).to(device), n_valid))
+
+    nf = eval_ds.num_frm
+    vb = max(1, cfg.inference_video_batch_size)
+    videos = list(range(len(eval_ds)))
+    groups = [videos[i:i + vb] for i in range(0, len(videos), vb)]
+    st = {"setup_s": 0.0, "data_wait_s": 0.0, "dispatch_s": 0.0,
+          "fetch_s": 0.0, "n_groups": 0, "decode_s": 0.0, "put_s": 0.0}
+    st_lock = threading.Lock()
+    local = threading.local()
+
+    def load(group):
+        t0 = time.perf_counter()
+        items = [eval_ds[v] for v in group]
+        items += [items[-1]] * (vb - len(group))   # tail pad, no re-decode
+        vis, src_hw = transforms.collate_visual(items)
+        t1 = time.perf_counter()
+        stream, ready = None, None
+        if on_cuda:
+            if not hasattr(local, "stream"):
+                local.stream = torch.cuda.Stream(device)
+            stream = local.stream
+        with torch.cuda.device(device) if on_cuda else nullcontext():
+            vis = _to_device(vis, device, stream)
+            src_hw = _to_device(src_hw, device, stream)
+            if on_cuda:
+                ready = torch.cuda.Event()
+                ready.record(stream)
+        t2 = time.perf_counter()
+        with st_lock:      # loader threads accumulate concurrently
+            st["decode_s"] += t1 - t0
+            st["put_s"] += t2 - t1
+        return group, vis, src_hw, ready
+
+    # Decode concurrency is clamped to the cores: decode is CPU-bound (the
+    # native decoder and PIL release the GIL), threads beyond the cores add
+    # no throughput but delay the first group, and the device cannot start
+    # until group 0 lands (clipbert_tpu/tasks/run_video_retrieval.py:207-215)
+    n_threads = max(1, min(cfg.n_workers, os.cpu_count() or 1))
+    rows = []      # (video_idx, scores (n_caps,))
+    pending = []   # (group, host scores, copy-done event): fetched after
+    st["setup_s"] = time.perf_counter() - t_setup
+    with ThreadPoolExecutor(n_threads) as pool:
+        batches = pool.map(load, groups)
+        while True:
+            t0 = time.perf_counter()
+            nxt = next(batches, None)
+            st["data_wait_s"] += time.perf_counter() - t0
+            if nxt is None:
+                break
+            group, vis, src_hw, ready = nxt
+            st["n_groups"] += 1
+            t0 = time.perf_counter()
+            if ready is not None:
+                main = torch.cuda.current_stream(device)
+                main.wait_event(ready)
+                for t in (vis, src_hw):
+                    if t is not None:
+                        t.record_stream(main)
+            # vis: (vb, n_clips*nf, H, W, 3) uint8 -> (vb*nc, nf, S, S, 3)
+            nc = vis.shape[1] // nf
+            if src_hw is not None:
+                pixels = transforms.resize_pad_normalize(
+                    vis, src_hw, cfg.max_img_size, mean, std, compute_dtype)
+            else:
+                pixels = transforms.normalize_pixels(vis, mean, std,
+                                                     compute_dtype)
+            pixels = pixels.reshape((vb * nc, nf) + pixels.shape[2:])
+            feats = encode_fn(model, pixels)       # once per video
+            del vis, src_hw, pixels
+            feats = feats.reshape((vb, nc) + feats.shape[1:])
+            scores_dev = torch.cat([prob_fn(model, feats, ids, mask)
+                                    [:, :n_valid]
+                                    for ids, mask, n_valid in cap_batches],
+                                   dim=1)
+            del feats
+            # start the D2H copy without blocking the loop: the next group's
+            # launches overlap this group's compute, and the deferred fetch
+            # below finds the bytes already on the host
+            if on_cuda:
+                host = torch.empty(scores_dev.shape, dtype=scores_dev.dtype,
+                                   pin_memory=True)
+                host.copy_(scores_dev, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                pending.append((group, host, done))
+            else:
+                pending.append((group, scores_dev, None))
+            del scores_dev
+            st["dispatch_s"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for group, scores, done in pending:
+        if done is not None:
+            done.synchronize()
+        scores = scores.numpy().astype(np.float32)
+        for j, vidx in enumerate(group):
+            rows.append((vidx, scores[j]))
+    st["fetch_s"] += time.perf_counter() - t0
+    if stage_stats is not None:
+        stage_stats.update(st)
+
+    score_matrix = np.stack([s for _, s in sorted(rows, key=lambda r: r[0])])
+
+    # captions are rows in the metric convention -> transpose
+    vid_pos = {v: i for i, v in enumerate(eval_ds.video_ids)}
+    gt_txt2vid = np.array([vid_pos[eval_ds.gt_cap_id2vid_id[i]]
+                           for i in range(n_caps)])
+    m = eval_metrics.retrieval_metrics(score_matrix.T, gt_txt2vid)
+    flat = {f"t2v_{k}": v for k, v in m["text2video"].items()}
+    flat.update({f"v2t_{k}": v for k, v in m["video2text"].items()})
+    flat["score_matrix"] = score_matrix
+    return flat
+
+
+def start_inference(cfg: RunConfig) -> Dict:
+    cfg = common.restore_inference_config(cfg)
+    tokenizer = common.setup_tokenizer(cfg)
+    cfg.num_labels = 2 if cfg.loss_type == "ce" else 1
+    model_cfg = inject_task_attrs(common.load_model_config(cfg), cfg)
+    compute_dtype = common.compute_dtype_for(cfg)
+    model, step = common.load_inference_params(cfg, model_cfg, "retrieval")
+
+    txt = cfg.inference_txt_db or cfg.val_datasets[0].txt_paths()[0]
+    img = cfg.inference_img_db or cfg.val_datasets[0].img
+    raw = load_jsonl(txt)
+    for i, d in enumerate(raw):
+        d["id"] = i
+    ds = VideoRetrievalEvalDataset(
+        raw, tokenizer, common.setup_store(img), fps=cfg.fps,
+        num_frm=cfg.num_frm, max_img_size=cfg.max_img_size,
+        max_txt_len=cfg.max_txt_len, ensemble_n_clips=cfg.inference_n_clips,
+        device_preprocess=cfg.device_preprocess)
+    m = inference_retrieval(cfg, model_cfg, model, ds, compute_dtype)
+    if cfg.output_dir:
+        out = {k: v for k, v in m.items() if k != "score_matrix"}
+        save_json(out, os.path.join(
+            cfg.output_dir, f"retrieval_metrics_step{step}.json"))
+        LOGGER.info(out)
+    return m
+
+
+def main(argv=None) -> Dict:
+    cfg = load_run_config(argv)
+    if not cfg.do_inference:
+        raise SystemExit(
+            "clipbert_tpu_torch.tasks.run_video_retrieval runs inference "
+            "only (--do_inference 1); retrieval training is not ported yet "
+            "(train with clipbert_tpu.tasks.run_video_retrieval)")
+    return start_inference(cfg)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

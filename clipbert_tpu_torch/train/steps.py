@@ -1,5 +1,6 @@
-"""Inference scoring steps (port of clipbert_tpu/train/steps.py, the parts
-the retrieval serving path runs).
+"""Inference steps (port of clipbert_tpu/train/steps.py, the parts the
+retrieval serving and eval paths run: the clip-folded ``mil_forward`` for
+eval, the cached-feature encode and scoring steps).
 
 The JAX steps are jitted programs memoized per configuration; here a step
 is a plain closure run eagerly under ``torch.inference_mode``. There is no
@@ -9,12 +10,13 @@ mesh and no shard_map: the port drives one device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from clipbert_tpu_torch.core.config import ModelConfig
 from clipbert_tpu_torch.models import clipbert
+from clipbert_tpu_torch.ops import kernels_default
 
 
 @dataclass(frozen=True)
@@ -24,6 +26,49 @@ class TaskSettings:
     head_type: str                  # retrieval
     loss_type: str = "ce"           # ce|bce|mse|rank
     score_agg_func: str = "mean"    # mean|max|lse
+    train_n_clips: int = 1          # clips folded per mil_forward call
+    group_size: int = 1             # texts per visual
+
+
+@torch.inference_mode()
+def mil_forward(model: clipbert.ClipBert, cfg: ModelConfig,
+                ts: TaskSettings, batch: Dict[str, torch.Tensor],
+                compute_dtype=torch.bfloat16,
+                use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """All ``ts.train_n_clips`` clips through CNN + BERT as one batch, eval
+    only (clipbert_tpu/train/steps.py:116-165 with train=False: no dropout).
+
+    batch["visual_inputs"]: (B_v, nc * nf, H, W, 3); batch["text_input_ids"]
+    and ["text_input_mask"]: (B_t, Lt) with B_t = B_v * group_size. Visuals
+    fold clip-major, (B_v, nc * nf) -> (nc * B_v, nf), and the texts tile
+    once per clip, so row c * B_t + t pairs clip c with text t. Returns
+    per-clip logits (B_t, nc, L). The attention core is the einsum path, as
+    in the JAX bench unit (bench.py:81-86); ``use_kernels`` as in
+    clipbert.cnn_forward."""
+    if ts.head_type != "retrieval":
+        raise ValueError(f"mil_forward: head {ts.head_type!r} is not ported")
+    vis = batch["visual_inputs"]
+    B_v = vis.shape[0]
+    nc = ts.train_n_clips
+    nf = vis.shape[1] // nc
+    H, W, C = vis.shape[2:]
+    G = ts.group_size
+    vis = vis.reshape(B_v, nc, nf, H, W, C).transpose(0, 1)
+    vis = vis.reshape(nc * B_v, nf, H, W, C)
+    feats = clipbert.cnn_forward(model.cnn, vis, compute_dtype, use_kernels)
+    if G > 1:
+        # fan out to texts: consecutive repeat inside each clip block
+        feats = feats.reshape((nc, B_v) + feats.shape[1:])
+        feats = feats.repeat_interleave(G, dim=1)
+        feats = feats.reshape((nc * B_v * G,) + feats.shape[2:])
+    B_t = batch["text_input_ids"].shape[0]
+    if B_t != B_v * G:
+        raise ValueError(f"{B_t} texts for {B_v} visuals x group {G}")
+    out = clipbert.clipbert_forward(
+        model, cfg, {"text_input_ids": batch["text_input_ids"].repeat(nc, 1),
+                     "text_input_mask": batch["text_input_mask"].repeat(nc, 1)},
+        ts.head_type, compute_dtype=compute_dtype, visual_features=feats)
+    return out["logits"].reshape(nc, B_t, -1).transpose(0, 1)
 
 
 def aggregate_clips(logits: torch.Tensor, agg: str) -> torch.Tensor:
@@ -48,19 +93,16 @@ def pool_clip_logits(logits: torch.Tensor, agg: str) -> torch.Tensor:
     return aggregate_clips(logits, agg)
 
 
-def fused_attn_default(device: torch.device) -> bool:
-    """The fused attention kernel runs the scoring programs on a CUDA
-    device (the JAX package picks its Pallas kernel for one accelerator
-    the same way); CPU tensors take the einsum path."""
-    return torch.device(device).type == "cuda"
-
-
-def make_visual_encode_step(compute_dtype=torch.bfloat16) -> Callable:
-    """(model, pixels (B, T, H, W, 3)) -> grid features (B, T, Hg, Wg, D)."""
+def make_visual_encode_step(compute_dtype=torch.bfloat16,
+                            use_kernels: Optional[bool] = None) -> Callable:
+    """(model, pixels (B, T, H, W, 3)) -> grid features (B, T, Hg, Wg, D).
+    ``use_kernels=None`` runs the CNN's kernel form (the fused stem and the
+    fused 1x1 convs) when the pixels lie on a CUDA device."""
 
     @torch.inference_mode()
     def step(model: clipbert.ClipBert, pixels: torch.Tensor) -> torch.Tensor:
-        return clipbert.cnn_forward(model.cnn, pixels, compute_dtype)
+        return clipbert.cnn_forward(model.cnn, pixels, compute_dtype,
+                                    use_kernels)
 
     return step
 
@@ -75,7 +117,7 @@ def make_text_score_step(cfg: ModelConfig, ts: TaskSettings,
 
     @torch.inference_mode()
     def step(model, feats, ids, mask):
-        fused = (fused_attn_default(feats.device) if fused_attn is None
+        fused = (kernels_default(feats.device) if fused_attn is None
                  else fused_attn)
         B_v, nc = feats.shape[:2]
         B_t = ids.shape[0]

@@ -1,6 +1,7 @@
 """The port never imports jax (nor clipbert_tpu, whose __init__ imports
-jax), and on tensors that lie on the CPU the fused-attention wrapper takes
-its plain version without counting a kernel launch. Checked in a fresh
+jax): every module of clipbert_tpu_torch, and chip_smoke.py, imports with
+both blocked. On tensors that lie on the CPU each kernel wrapper takes its
+plain version without counting a kernel launch. Checked in a fresh
 interpreter: this test process has imported jax already (conftest.py)."""
 
 import os
@@ -11,14 +12,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = r"""
 import importlib, pkgutil, sys
+for blocked in ("jax", "jaxlib", "clipbert_tpu"):
+    sys.modules[blocked] = None          # importing it now raises ImportError
 import clipbert_tpu_torch
-for m in pkgutil.walk_packages(clipbert_tpu_torch.__path__,
-                               "clipbert_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(clipbert_tpu_torch.__path__,
+                                               "clipbert_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in NEW_MODULES:
+    assert name in names, name
 import chip_smoke
-import clipbert_tpu_torch.serve
-bad = [n for n in sys.modules if n == "jax" or n.startswith("jax.")
-       or n == "clipbert_tpu" or n.startswith("clipbert_tpu.")]
+bad = [n for n, m in sys.modules.items() if m is not None and (
+       n == "jax" or n.startswith("jax.") or n == "clipbert_tpu"
+       or n.startswith("clipbert_tpu."))]
 assert not bad, bad
 
 import torch
@@ -30,9 +36,36 @@ bias[:, 5:] = -10000.0
 out = fa.fused_attention(q, k, v, bias, 0.25)
 assert torch.equal(out, fa.fused_attention_reference(q, k, v, bias, 0.25))
 assert fa.LAUNCHES == 0, fa.LAUNCHES
-assert "jax" not in sys.modules
+
+from clipbert_tpu_torch.ops import fused_stem_pool as fsp
+from clipbert_tpu_torch.ops import matmul_bn_act as mba
+x = torch.randn(2, 5, 6, 8, generator=g)
+w = torch.randn(16, 8, 1, 1, generator=g)
+b = torch.randn(16, generator=g)
+out = mba.conv1x1_bn_act(x, w, None, b, stride=2)
+assert torch.equal(out, mba.matmul_bn_act_reference(
+    x[:, ::2, ::2].reshape(-1, 8), w.reshape(16, 8).t(), None, b
+    ).reshape(2, 3, 3, 16))
+px = torch.randn(1, 19, 23, 3, generator=g)
+sw = torch.randn(64, 3, 7, 7, generator=g)
+sb = torch.randn(64, generator=g)
+assert torch.equal(fsp.fused_stem_pool(px, sw, sb),
+                   fsp.fused_stem_pool_reference(px, sw, sb))
+assert mba.LAUNCHES == 0 and fsp.LAUNCHES == 0
+assert sys.modules["jax"] is None
 print("PORT_OK")
 """
+# modules this slice of the port added; the walk above must reach them all
+NEW_MODULES = ["clipbert_tpu_torch.ops.matmul_bn_act",
+               "clipbert_tpu_torch.ops.fused_stem_pool",
+               "clipbert_tpu_torch.evaluation.metrics",
+               "clipbert_tpu_torch.data.store",
+               "clipbert_tpu_torch.data.datasets",
+               "clipbert_tpu_torch.ckpt.checkpoint",
+               "clipbert_tpu_torch.tasks.common",
+               "clipbert_tpu_torch.tasks.run_video_retrieval",
+               "clipbert_tpu_torch.utils.basic"]
+_CHECK = _CHECK.replace("NEW_MODULES", repr(NEW_MODULES))
 
 
 def _run(args, cwd):
