@@ -39,8 +39,30 @@ Phases; any failure raises and the script exits non-zero:
     video group's grid features within FEAT_REL, as in phase 6.
  8. the bench unit (bench.py's mil_forward at 8 videos x 16 clips and 128
     videos x 1 clip), kernel form against cuDNN form in turns, clips/s.
+10. tensor-parallel scoring at full width: fused_attention_shard_heads
+    against its plain version at the head-shard shapes (6 and 3 local
+    heads, strided views of a rank's merged QKV), timed beside SDPA; then
+    2 ranks on a (1 data x 2 model) mesh and 4 ranks on a (2 x 2) mesh,
+    spawned on this one card over gloo, each Megatron-splitting the same
+    seeded model and running make_text_prob_step(mesh=) on 1 video x 16
+    clips x 8 captions. Counts from 0 in every rank: exactly 12 kernel
+    launches per call, at 6 local heads. Every rank's probabilities must
+    agree with the single-process kernel path within PROB_ATOL and its
+    final hidden states within TP_HIDDEN_REL, in bf16 and in fp32; one
+    planted fault (one layer's row-parallel reduce dropped on one rank)
+    must land at least 3x outside each bound.
+11. multi-process eval: 2 processes on this card over gloo (phase 10's
+    pair of ranks, once their scoring is done, which saves a spawn) run
+    inference_retrieval on phase 7's store; every video is scored once,
+    the merged matrix is bit-identical to phase 7's (the same group and
+    minibatch shapes), and its R@K is the merged matrix's.
  9. the last two lines: the kernels' JSON record, then
     {"ok": true, "device": {...}}.
+
+The ranks of phases 10 and 11 share the one card, so their process group
+runs over gloo, passed explicitly (NCCL refuses two ranks on one device):
+each row-parallel all-reduce and gather goes through the host. A rank that
+fails or outlives its phase's timeout fails the script.
 
 Imports nothing of JAX. Needs one card, nvcc and a few minutes.
 """
@@ -61,18 +83,23 @@ import torch.nn.functional as F
 
 from clipbert_tpu_torch.core.config import (ModelConfig, inject_task_attrs,
                                             load_run_config)
+from clipbert_tpu_torch.core.mesh import Mesh, make_mesh
 from clipbert_tpu_torch.data import store, transforms, video
 from clipbert_tpu_torch.data.datasets import VideoRetrievalEvalDataset
 from clipbert_tpu_torch.data.tokenization import BertTokenizer, write_tiny_vocab
-from clipbert_tpu_torch.models import clipbert, resnet
+from clipbert_tpu_torch.evaluation import metrics as eval_metrics
+from clipbert_tpu_torch.models import bert, clipbert, resnet
 from clipbert_tpu_torch.ops import _build
 from clipbert_tpu_torch.ops import fused_attention as fa
 from clipbert_tpu_torch.ops import fused_stem_pool as fsp
 from clipbert_tpu_torch.ops import matmul_bn_act as mba
+from clipbert_tpu_torch.ops.linear import mm_f32
+from clipbert_tpu_torch.parallel import shard_model
 from clipbert_tpu_torch.serve import RetrievalScorer, _pow2_bucket
 from clipbert_tpu_torch.tasks import common
 from clipbert_tpu_torch.tasks.run_video_retrieval import inference_retrieval
 from clipbert_tpu_torch.train import steps
+from clipbert_tpu_torch.utils.distributed import spawn_ranks
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LIBRARIES = ("fused_attention", "matmul_bn_act", "fused_stem_pool")
@@ -126,10 +153,27 @@ CAPTION_WORDS = ["a", "man", "woman", "is", "playing", "guitar", "cooking",
                  "cat", "sits", "near", "window", "child", "swimming"]
 REQUEST_SIZES = (1, 5, 32)
 REPEATS = 5
+TP_REPEATS = 3           # timed calls per rank: each ~0.7-0.9 s over gloo
 # R50 1x1 convs per encode: conv1 and conv3 of 16 bottlenecks + 4 shortcuts
 MBA_PER_ENCODE = 2 * sum(n for n, _, _ in resnet.R50_STAGES) + 4
 FRAMES = 32        # 16 clips x 2 frames: one 16-clip request's CNN batch
 EVAL_VIDEOS, EVAL_CAPTIONS = 16, 72
+# Phase 10: 1 video x 16 clips x 8 captions of 20 tokens (S = 20 + 49)
+TP_CLIPS, TP_CAPTIONS, TXT_LEN = 16, 8, 20
+# Tensor-parallel final hidden states against the single-process kernel
+# path on the same inputs, as ||TP - single|| / ||single|| over a rank's
+# sequences, in the main path's bf16 and in fp32. Both sides sum the same
+# fp32 products in another order (two K/2 partial products and a reduce vs
+# one product over K, cuBLAS tiles chosen for other widths). In fp32 that
+# is all: 9.56e-7 on an H100. In bf16 it flips roundings that the 12
+# layers carry to 1.06e-2, about as far as the bf16 states sit from the
+# fp32 ones (printed beside). Dropping layer 5's attention-output reduce on
+# one rank moved the states by 0.168 (bf16) and 0.167 (fp32) (PERF.md, PR
+# 3). Each bound sits ~3x above the gap, the fault at least 3x above it.
+TP_HIDDEN_REL = {torch.bfloat16: 3e-2, torch.float32: 3e-6}
+DTYPES = (torch.bfloat16, torch.float32)
+FAULT_LAYER = 5          # the layer whose reduce the planted fault drops
+RANK_TIMEOUT_S = 300     # per spawned group of ranks
 
 
 def phase_device() -> None:
@@ -484,7 +528,7 @@ def _captions(rng, n):
 
 
 def _reset_counts():
-    fa.LAUNCHES = mba.LAUNCHES = fsp.LAUNCHES = 0
+    fa.LAUNCHES = fa.SHARD_HEADS_LAUNCHES = mba.LAUNCHES = fsp.LAUNCHES = 0
 
 
 def _counts():
@@ -496,7 +540,8 @@ def _expect(what, got, want):
         raise AssertionError(f"{what}: {got} launches, expected {want}")
 
 
-def _model(cfg):
+def _model(cfg, verbose=True):
+    """The seeded random-weight model, the same in every process."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     model = clipbert.init_clipbert(cfg, "retrieval", generator=gen,
@@ -504,9 +549,10 @@ def _model(cfg):
     clipbert.fold_cnn_bn_scales(model)
     model.eval().requires_grad_(False)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: {n_params} parameters, {cfg.num_hidden_layers} layers, "
-          f"hidden {cfg.hidden_size}, random init on cuda in "
-          f"{time.perf_counter() - t0:.2f} s, frozen BN folded")
+    if verbose:
+        print(f"model: {n_params} parameters, {cfg.num_hidden_layers} "
+              f"layers, hidden {cfg.hidden_size}, random init on cuda in "
+              f"{time.perf_counter() - t0:.2f} s, frozen BN folded")
     return model
 
 
@@ -671,61 +717,69 @@ def _check_eval_cnn_forms(model, model_cfg, cfg, ds):
                            ids, mask).cpu().numpy())
 
 
-def phase_eval(model, model_cfg, tok, cfg):
+def _eval_dataset(rows, tok, path, cfg):
+    return VideoRetrievalEvalDataset(
+        rows, tok, store.open_store(path), fps=cfg.fps, num_frm=cfg.num_frm,
+        max_img_size=cfg.max_img_size, max_txt_len=cfg.max_txt_len,
+        ensemble_n_clips=cfg.inference_n_clips,
+        device_preprocess=cfg.device_preprocess)
+
+
+def _check_matrix(sm):
+    if sm.shape != (EVAL_VIDEOS, EVAL_CAPTIONS) or \
+            not np.isfinite(sm).all() or not ((sm >= 0) & (sm <= 1)).all():
+        raise AssertionError(f"bad score matrix {sm.shape}")
+
+
+def _stats_json(stats):
+    return json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                       for k, v in stats.items()})
+
+
+def phase_eval(model, model_cfg, tok, cfg, d):
+    """Phase 7 on a store made under ``d`` (kept for phase 11). Returns the
+    main path's launches, the kernel form's score matrix and wall time, the
+    store's path and the caption rows."""
     rng = np.random.default_rng(5)
-    results = {}
-    with tempfile.TemporaryDirectory() as d:
-        path, rows = _eval_store(d, rng)
-        n_cap_batches = -(-EVAL_CAPTIONS // cfg.inference_batch_size)
-        for form in ("kernels", "cudnn"):
-            ds = VideoRetrievalEvalDataset(
-                rows, tok, store.open_store(path), fps=cfg.fps,
-                num_frm=cfg.num_frm, max_img_size=cfg.max_img_size,
-                max_txt_len=cfg.max_txt_len,
-                ensemble_n_clips=cfg.inference_n_clips,
-                device_preprocess=cfg.device_preprocess)
-            stats = {}
-            if form == "kernels":
-                # ---- the main path: counts from 0, read right after ----
-                _reset_counts()
-            t0 = time.perf_counter()
-            m = inference_retrieval(cfg, model_cfg, model, ds,
-                                    torch.bfloat16, stats,
-                                    use_kernels=form == "kernels")
-            wall = time.perf_counter() - t0
-            if form == "kernels":
-                launches = _counts()
-                g = stats["n_groups"]
-                _expect("eval, attention", launches[0],
-                        model_cfg.num_hidden_layers * g * n_cap_batches)
-                _expect("eval, matmul_bn_act", launches[1],
-                        MBA_PER_ENCODE * g)
-                _expect("eval, fused_stem_pool", launches[2], g)
-                print(f"eval path: {g} video groups x {n_cap_batches} "
-                      f"caption minibatches launched attention "
-                      f"{launches[0]}, matmul_bn_act {launches[1]} and "
-                      f"fused_stem_pool {launches[2]} times")
-            sm = m["score_matrix"]
-            if sm.shape != (EVAL_VIDEOS, EVAL_CAPTIONS) or \
-                    not np.isfinite(sm).all() or \
-                    not ((sm >= 0) & (sm <= 1)).all():
-                raise AssertionError(f"bad score matrix {sm.shape}")
-            if ds.n_fallbacks:
-                raise AssertionError(f"{ds.n_fallbacks} videos did not "
-                                     "decode")
-            recall = {k: v for k, v in m.items() if k != "score_matrix"}
-            print(f"eval, {form} form: wall {wall:.3f} s; stage stats "
-                  + json.dumps({k: round(v, 4) if isinstance(v, float)
-                                else v for k, v in stats.items()}))
-            print(f"eval, {form} form: R@K {json.dumps(recall)}")
-            results[form] = sm
-        _check_eval_cnn_forms(model, model_cfg, cfg, ds)
-    err =float(np.abs(results["kernels"] - results["cudnn"]).max())
+    results, walls = {}, {}
+    path, rows = _eval_store(d, rng)
+    n_cap_batches = -(-EVAL_CAPTIONS // cfg.inference_batch_size)
+    for form in ("kernels", "cudnn"):
+        ds = _eval_dataset(rows, tok, path, cfg)
+        stats = {}
+        if form == "kernels":
+            # ---- the main path: counts from 0, read right after ----
+            _reset_counts()
+        t0 = time.perf_counter()
+        m = inference_retrieval(cfg, model_cfg, model, ds, torch.bfloat16,
+                                stats, use_kernels=form == "kernels")
+        walls[form] = time.perf_counter() - t0
+        if form == "kernels":
+            launches = _counts()
+            g = stats["n_groups"]
+            _expect("eval, attention", launches[0],
+                    model_cfg.num_hidden_layers * g * n_cap_batches)
+            _expect("eval, matmul_bn_act", launches[1], MBA_PER_ENCODE * g)
+            _expect("eval, fused_stem_pool", launches[2], g)
+            print(f"eval path: {g} video groups x {n_cap_batches} caption "
+                  f"minibatches launched attention {launches[0]}, "
+                  f"matmul_bn_act {launches[1]} and fused_stem_pool "
+                  f"{launches[2]} times")
+        _check_matrix(m["score_matrix"])
+        if ds.n_fallbacks:
+            raise AssertionError(f"{ds.n_fallbacks} videos did not decode")
+        recall = {k: v for k, v in m.items() if k != "score_matrix"}
+        print(f"eval, {form} form: wall {walls[form]:.3f} s; stage stats "
+              + _stats_json(stats))
+        print(f"eval, {form} form: R@K {json.dumps(recall)}")
+        results[form] = m["score_matrix"]
+    _check_eval_cnn_forms(model, model_cfg, cfg, ds)
+    err = float(np.abs(results["kernels"] - results["cudnn"]).max())
     print(f"eval score matrices, kernel form vs cuDNN form: max_abs_diff "
           f"{err:.3e} (bound {PROB_ATOL})")
     if err > PROB_ATOL:
         raise AssertionError(f"eval score matrices disagree by {err}")
-    return launches
+    return launches, results["kernels"], walls["kernels"], path, rows
 
 
 def phase_bench(model, cfg):
@@ -760,6 +814,377 @@ def phase_bench(model, cfg):
         torch.cuda.empty_cache()
 
 
+def _retrieval_ts():
+    return steps.TaskSettings(head_type="retrieval", loss_type="ce",
+                              score_agg_func="lse")
+
+
+def _rank_setup():
+    """A spawned rank's preamble, before its first CUDA call: this card,
+    TF32 off as in phase 1, and an allocator that grows its segments, so
+    that two eval processes' activations fit on the one card beside the
+    parent without stranding blocks."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _final_hidden(model, cfg, feats, ids, mask, fused, mesh, dtype):
+    """The final hidden states, computed in ``dtype``, of the scoring batch
+    make_text_prob_step builds from this rank's data shard of the
+    captions: (nc * B_t_local, S, D), row c * B_t_local + t pairing clip c
+    with caption t."""
+    if mesh is not None:
+        n = ids.shape[0] // mesh.n_data
+        ids, mask = (t[mesh.data_idx * n:(mesh.data_idx + 1) * n]
+                     for t in (ids, mask))
+    B_v, nc = feats.shape[:2]
+    B_t = ids.shape[0]
+    f = feats.reshape((B_v * nc,) + feats.shape[2:])
+    with torch.inference_mode():
+        hidden, _ = clipbert.base_forward(
+            model.transformer.bert, cfg, ids.repeat(B_v * nc, 1),
+            mask.repeat(B_v * nc, 1), f.repeat_interleave(B_t, dim=0),
+            dtype, fused_attn=fused, mesh=mesh)
+    return hidden
+
+
+@contextlib.contextmanager
+def _dropped_reduce(layer, active: bool):
+    """The planted fault of phase 10, on the ranks where ``active``: the
+    attention-output product of ``layer`` keeps this rank's partial sum.
+    Its all-reduce still runs, on a copy, so the collectives stay paired
+    across the ranks."""
+    real = bert.dense_row_parallel
+    target = layer.attention.output.dense.weight
+
+    def faulty(x, w, b, group):
+        if w is not target:
+            return real(x, w, b, group)
+        y = mm_f32(x.reshape(-1, x.shape[-1]), w.to(x.dtype).t())
+        torch.distributed.all_reduce(y.clone(), group=group)
+        return (y + b.float()).to(x.dtype).reshape(x.shape[:-1]
+                                                   + (w.shape[0],))
+
+    if active:
+        bert.dense_row_parallel = faulty
+    try:
+        yield
+    finally:
+        bert.dense_row_parallel = real
+
+
+@contextlib.contextmanager
+def _encoder_output(kept: list):
+    """Appends the encoder's final hidden states of each forward run inside
+    to ``kept``."""
+    real = bert.encoder
+
+    def keep(*args, **kwargs):
+        out = real(*args, **kwargs)
+        kept.append(out)
+        return out
+
+    bert.encoder = keep
+    try:
+        yield kept
+    finally:
+        bert.encoder = real
+
+
+def _tp_work(rank, model_parallel, cfg, feats, ids, mask):
+    """Phase 10 in one rank: the seeded model Megatron-split over a (world
+    / model_parallel, model_parallel) mesh scores the captions through
+    make_text_prob_step(mesh=); returns what the parent checks."""
+    t_start = time.perf_counter()
+    mesh = make_mesh(model_parallel)
+    model = shard_model(_model(cfg, verbose=False), mesh)
+    feats, ids, mask = (t.cuda() for t in (feats, ids, mask))
+    t_model = time.perf_counter()
+    step = steps.make_text_prob_step(cfg, _retrieval_ts(), torch.bfloat16,
+                                     mesh=mesh)
+    shapes = set()
+    kernel = fa.fused_attention
+
+    def recorded(q, k, v, key_bias, scale):
+        shapes.add((tuple(q.shape), q.stride(1)))
+        return kernel(q, k, v, key_bias, scale)
+
+    fa.fused_attention = recorded
+    # ---- the main path: counts from 0, read right after ----------------
+    _reset_counts()
+    with _encoder_output([]) as kept:
+        probs = step(model, feats, ids, mask)
+    torch.cuda.synchronize()
+    launches = (fa.LAUNCHES, fa.SHARD_HEADS_LAUNCHES)
+    fa.fused_attention = kernel
+    ms = []
+    for _ in range(TP_REPEATS):
+        t0 = time.perf_counter()
+        step(model, feats, ids, mask)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    hidden = {torch.bfloat16: kept[0].cpu(),
+              torch.float32: _final_hidden(model, cfg, feats, ids, mask,
+                                           True, mesh, torch.float32).cpu()}
+    with _dropped_reduce(model.transformer.bert.encoder.layers[FAULT_LAYER],
+                         rank == 0), _encoder_output([]) as kept:
+        bad_probs = step(model, feats, ids, mask)
+        bad_hidden = {torch.bfloat16: kept[0].cpu(),
+                      torch.float32: _final_hidden(
+                          model, cfg, feats, ids, mask, True, mesh,
+                          torch.float32).cpu()}
+    return {"idx": (mesh.data_idx, mesh.model_idx), "launches": launches,
+            "shapes": sorted(shapes), "probs": probs.cpu(),
+            "bad_probs": bad_probs.cpu(), "hidden": hidden,
+            "bad_hidden": bad_hidden, "ms": ms,
+            "setup_s": t_model - t_start,
+            "run_s": time.perf_counter() - t_model}
+
+
+def _eval_work(run_cfg, tok, path, rows, cfg):
+    """Phase 11 in one process: inference_retrieval on phase 7's store."""
+    model = _model(cfg, verbose=False)
+    ds = _eval_dataset(rows, tok, path, run_cfg)
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0, read right after ----------------
+    _reset_counts()
+    t0 = time.perf_counter()
+    m = inference_retrieval(run_cfg, cfg, model, ds, torch.bfloat16, stats)
+    return {"m": m, "stats": stats, "launches": _counts(),
+            "wall": time.perf_counter() - t0, "fallbacks": ds.n_fallbacks,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _rank(rank, world, model_parallel, cfg, tp_inputs, eval_inputs):
+    """One spawned rank: phase 10's work, then phase 11's when
+    ``eval_inputs`` is given (phase 10's pair of ranks are phase 11's two
+    processes, which saves a spawn)."""
+    _rank_setup()
+    out = {"tp": _tp_work(rank, model_parallel, cfg, *tp_inputs)}
+    if eval_inputs is not None:
+        torch.cuda.empty_cache()
+        out["eval"] = _eval_work(*eval_inputs, cfg=cfg)
+    return out
+
+
+def _shard_heads_vs_plain(gen):
+    """fused_attention_shard_heads against its plain version at the head
+    shards of a 2-way and a 4-way model axis (B = 1 video x 16 clips x 8
+    captions, S = 69, 6 and 3 heads, strided views of the rank's merged QKV
+    with row pitch 3 D / n_model); timed at 6 heads beside SDPA. The
+    kernel communicates nothing, so a mesh that only describes the rank's
+    layout is all it needs here."""
+    B, S, dh, heads = TP_CLIPS * TP_CAPTIONS, 69, 64, 12
+    bf16_err = 0.0
+    for n_model in (2, 4):
+        H = heads // n_model
+        mesh = Mesh(1, n_model)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = _inputs(B, S, H, dh, dtype, "merged-qkv views",
+                                    gen)
+            scale = dh ** -0.5
+            ref = fa.fused_attention_reference(q, k, v, bias, scale)
+            out = fa.fused_attention_shard_heads(q, k, v, bias, scale, mesh,
+                                                 heads)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            err = diff.max().item()
+            if dtype == torch.float32:
+                ok = bool((diff <= FP32_TOL + FP32_TOL * ref.float().abs())
+                          .all())
+            else:
+                ok = err <= BF16_ATOL
+                bf16_err = max(bf16_err, err)
+            print(f"shard_heads vs plain {(B, S, H, dh)} row pitch "
+                  f"{q.stride(1)} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"fused_attention_shard_heads disagrees "
+                                     f"with its plain version at "
+                                     f"{(B, S, H, dh)} {dtype}: {err}")
+    H = heads // 2
+    q, k, v, bias = _inputs(B, S, H, dh, torch.bfloat16, "merged-qkv views",
+                            gen)
+    scale = dh ** -0.5
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = bias[:, None, None, :].to(torch.bfloat16)
+    k_ms, p_ms, lib_ms, (k1, k2, p1, p2) = _in_turns(
+        lambda: fa.fused_attention_shard_heads(q, k, v, bias, scale,
+                                               Mesh(1, 2), heads),
+        lambda: fa.fused_attention_reference(q, k, v, bias, scale), 200,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, mask,
+                                               scale=scale))
+    bound = _bound_ms(4 * B * H * S * S * dh, 4 * B * S * H * dh * 2
+                      + B * S * 4)
+    print(f"time bf16 shard_heads {(B, S, H, dh)} row pitch {q.stride(1)}: "
+          f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+          f"SDPA {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    torch.cuda.empty_cache()
+    return bf16_err, (k_ms, p_ms, lib_ms, bound)
+
+
+def phase_tp(model, cfg, tok, d, gen, eval_inputs):
+    """Phase 10; its pair of ranks then runs phase 11's eval on
+    ``eval_inputs``, whose results are returned for phase 11's checks."""
+    shard_err, shard_time = _shard_heads_vs_plain(gen)
+    rng = np.random.default_rng(7)
+    px = (torch.randn(TP_CLIPS, 2, 448, 448, 3, device="cuda",
+                      generator=gen) * 0.5).to(torch.bfloat16)
+    feats = steps.make_visual_encode_step(torch.bfloat16)(model, px)
+    feats = feats.reshape((1, TP_CLIPS) + feats.shape[1:])
+    enc = tok.batch_encode(_captions(rng, TP_CAPTIONS), TXT_LEN)
+    ids, mask = (torch.from_numpy(enc[k].astype(np.int64)).cuda()
+                 for k in ("input_ids", "attention_mask"))
+    step = steps.make_text_prob_step(cfg, _retrieval_ts(), torch.bfloat16)
+    with _encoder_output([]) as kept:
+        ref_probs = step(model, feats, ids, mask).cpu()
+    ms = []
+    for _ in range(TP_REPEATS):
+        t0 = time.perf_counter()
+        step(model, feats, ids, mask)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ref_hidden = {torch.bfloat16: kept[0],
+                  torch.float32: _final_hidden(model, cfg, feats, ids, mask,
+                                               True, None, torch.float32)}
+    S = ref_hidden[torch.bfloat16].shape[1]
+    print(f"tensor-parallel scoring: 1 video x {TP_CLIPS} clips x "
+          f"{TP_CAPTIONS} captions, S = {S}; one process, fused kernel: "
+          f"p50 {np.median(ms):.2f} ms per call; its final hidden states, "
+          f"bf16 vs fp32: relative gap "
+          f"{_rel_gap(*ref_hidden.values()):.3e} (bf16's own rounding)")
+    ref_hidden = {dt: h.reshape(TP_CLIPS, TP_CAPTIONS, S, -1)
+                  for dt, h in ref_hidden.items()}
+    torch.cuda.empty_cache()       # the ranks need the parent's spare cache
+    tp_inputs = (feats.cpu(), ids.cpu(), mask.cpu())
+    rank_launches = eval_outs = None
+    for world, model_parallel in ((2, 2), (4, 2)):
+        n_data = world // model_parallel
+        what = f"{n_data} data x {model_parallel} model"
+        t0 = time.perf_counter()
+        outs = spawn_ranks(_rank, world,
+                           (model_parallel, cfg, tp_inputs,
+                            eval_inputs if world == 2 else None),
+                           backend="gloo",
+                           workdir=os.path.join(d, f"ranks{world}"),
+                           timeout_s=RANK_TIMEOUT_S, threads=2)
+        print(f"{what}: {world} ranks on cuda:0 over gloo (chosen "
+              f"explicitly: NCCL refuses two ranks on one device), "
+              f"{time.perf_counter() - t0:.2f} s from spawn to join"
+              + (", phase 11's eval included" if world == 2 else ""))
+        if world == 2:
+            eval_outs = [out["eval"] for out in outs]
+        outs = [out["tp"] for out in outs]
+        gaps = {dt: [] for dt in DTYPES}
+        bad_gaps = {dt: [] for dt in DTYPES}
+        bad_probs, faults = [], []
+        for r, out in enumerate(outs):
+            rows = slice(out["idx"][0] * TP_CAPTIONS // n_data,
+                         (out["idx"][0] + 1) * TP_CAPTIONS // n_data)
+            for dt in DTYPES:
+                shard = ref_hidden[dt][:, rows].reshape(
+                    (-1,) + ref_hidden[dt].shape[2:])
+                gaps[dt].append(_rel_gap(out["hidden"][dt].cuda(), shard))
+                bad_gaps[dt].append(_rel_gap(out["bad_hidden"][dt].cuda(),
+                                             shard))
+                if not gaps[dt][-1] <= TP_HIDDEN_REL[dt]:
+                    faults.append(f"rank {r}: final hidden states "
+                                  f"({str(dt)[6:]}) differ by "
+                                  f"{gaps[dt][-1]} > {TP_HIDDEN_REL[dt]}")
+            bad_probs.append(float((out["bad_probs"] - ref_probs).abs()
+                                   .max()))
+            err = float((out["probs"] - ref_probs).abs().max())
+            heads = {shape[2] for shape, _ in out["shapes"]}
+            pitch = {p for _, p in out["shapes"]}
+            print(f"{what}, rank {r} at {out['idx']}: launches "
+                  f"(fused_attention, shard_heads) {out['launches']}, q "
+                  f"{[s for s, _ in out['shapes']]} row pitch {pitch}; "
+                  f"p50 {np.median(out['ms']):.2f} ms per call; "
+                  f"probabilities max_abs_err {err:.3e}; final hidden "
+                  f"relative gap bf16 {gaps[torch.bfloat16][-1]:.3e}, fp32 "
+                  f"{gaps[torch.float32][-1]:.3e}; set-up "
+                  f"{out['setup_s']:.2f} s, run {out['run_s']:.2f} s")
+            want = cfg.num_hidden_layers
+            if out["launches"] != (want, want):
+                faults.append(f"rank {r}: launches {out['launches']}, "
+                              f"expected {(want, want)}")
+            if heads != {cfg.num_attention_heads // model_parallel} or \
+                    pitch != {3 * cfg.hidden_size // model_parallel}:
+                faults.append(f"rank {r}: kernel saw {out['shapes']}")
+            if out["probs"].shape != ref_probs.shape or err > PROB_ATOL:
+                faults.append(f"rank {r}: probabilities "
+                              f"{tuple(out['probs'].shape)} differ by {err}"
+                              f" > {PROB_ATOL}")
+        for dt in DTYPES:
+            bad, bound = max(bad_gaps[dt]), TP_HIDDEN_REL[dt]
+            print(f"{what}: planted fault (layer {FAULT_LAYER}'s attention-"
+                  f"output reduce dropped on rank 0), {str(dt)[6:]}: final "
+                  f"hidden relative gap {bad:.3e} ({bad / bound:.1f}x the "
+                  f"bound {bound})")
+            if not bad >= 3 * bound:
+                faults.append(f"the planted fault moved the {dt} hidden "
+                              f"states by only {bad} < 3 x {bound}")
+        print(f"{what}: planted fault, probabilities max_abs_diff "
+              f"{max(bad_probs):.3e} (PROB_ATOL {PROB_ATOL})")
+        if faults:
+            raise AssertionError(f"{what}: " + "; ".join(faults))
+        if rank_launches is None:
+            rank_launches = outs[0]["launches"][1]
+    return rank_launches, shard_err, shard_time, eval_outs
+
+
+def phase_multiprocess_eval(cfg, run_cfg, tok, path, rows, single,
+                            single_wall, outs):
+    """Phase 11's checks on the two processes' results (``outs``, run by
+    phase 10's pair of ranks on cuda:0 over gloo)."""
+    print(f"multi-process eval: 2 processes on cuda:0 over gloo; one "
+          f"process took {single_wall:.3f} s in phase 7")
+    n_cap_batches = -(-EVAL_CAPTIONS // run_cfg.inference_batch_size)
+    sm = outs[0]["m"]["score_matrix"]
+    for r, out in enumerate(outs):
+        st, g = out["stats"], out["stats"]["n_groups"]
+        print(f"multi-process eval, rank {r}: {st['n_videos']} videos in "
+              f"{g} group(s), wall {out['wall']:.3f} s, peak device "
+              f"memory allocated {out['peak_gb']:.2f} GiB, launches "
+              f"{out['launches']}; stage stats {_stats_json(st)}")
+        _expect(f"eval rank {r}, attention", out["launches"][0],
+                cfg.num_hidden_layers * g * n_cap_batches)
+        _expect(f"eval rank {r}, matmul_bn_act", out["launches"][1],
+                MBA_PER_ENCODE * g)
+        _expect(f"eval rank {r}, fused_stem_pool", out["launches"][2], g)
+        if out["fallbacks"]:
+            raise AssertionError(f"rank {r}: {out['fallbacks']} videos did "
+                                 "not decode")
+        if not np.array_equal(out["m"]["score_matrix"], sm):
+            raise AssertionError("the processes' merged matrices differ")
+    if sum(out["stats"]["n_videos"] for out in outs) != EVAL_VIDEOS:
+        raise AssertionError("the processes did not share the videos out "
+                             "once each")
+    _check_matrix(sm)
+    err = float(np.abs(sm - single).max())
+    ds = _eval_dataset(rows, tok, path, run_cfg)
+    vid_pos = {v: i for i, v in enumerate(ds.video_ids)}
+    gt = [vid_pos[ds.gt_cap_id2vid_id[i]] for i in range(EVAL_CAPTIONS)]
+    m = eval_metrics.retrieval_metrics(sm.T, gt)
+    want = {f"t2v_{k}": v for k, v in m["text2video"].items()}
+    want.update({f"v2t_{k}": v for k, v in m["video2text"].items()})
+    got = {k: v for k, v in outs[0]["m"].items() if k != "score_matrix"}
+    print(f"multi-process eval: merged matrix vs phase 7's: max_abs_diff "
+          f"{err:.3e} (must be bit-identical); R@K {json.dumps(got)}")
+    # Each process runs the same group and minibatch shapes as phase 7, so
+    # every row is the same computation: any difference is a row scored from
+    # the wrong frames or filed under the wrong video (random-weight scores
+    # all sit near one value, so a tolerance would not see it)
+    if not np.array_equal(sm, single):
+        raise AssertionError(f"merged score matrix differs from phase 7's "
+                             f"by up to {err}")
+    if got != want:
+        raise AssertionError(f"R@K {got} is not the merged matrix's {want}")
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -779,9 +1204,14 @@ def main() -> None:
         vocab = os.path.join(d, "vocab.txt")
         write_tiny_vocab(vocab, extra_tokens=CAPTION_WORDS)
         tok = BertTokenizer(vocab)
-    phase_slice(model, model_cfg, tok)
-    launches = phase_eval(model, model_cfg, tok, run_cfg)
-    phase_bench(model, model_cfg)
+        phase_slice(model, model_cfg, tok)
+        launches, matrix, wall, path, rows = phase_eval(
+            model, model_cfg, tok, run_cfg, d)
+        phase_bench(model, model_cfg)
+        tp_launches, shard_err, shard_time, eval_outs = phase_tp(
+            model, model_cfg, tok, d, gen, (run_cfg, tok, path, rows))
+        phase_multiprocess_eval(model_cfg, run_cfg, tok, path, rows, matrix,
+                                wall, eval_outs)
 
     def record(name, source, replaces, n, err, t):
         k_ms, p_ms, lib_ms, (b_ms, b_by) = t
@@ -800,7 +1230,10 @@ def main() -> None:
                mba_times[(FRAMES * 112 * 112, 64, 256, True)]),
         record("fused_stem_pool", "fused_stem_pool.cu",
                "clipbert_tpu/ops/pallas_stem.py:196", launches[2], stem_err,
-               stem_time)]}))
+               stem_time),
+        record("fused_attention_shard_heads", "fused_attention.cu",
+               "clipbert_tpu/ops/pallas_attention.py:132", tp_launches,
+               shard_err, shard_time)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

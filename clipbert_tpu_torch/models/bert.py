@@ -13,14 +13,17 @@ parameter names follow the JAX parameter tree (``attention.self.query``,
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from clipbert_tpu_torch.core.config import ModelConfig
+from clipbert_tpu_torch.core.mesh import Mesh
 from clipbert_tpu_torch.ops.activations import ACT2FN
 from clipbert_tpu_torch.ops.attention import SelfAttention, multi_head_attention
 from clipbert_tpu_torch.ops.layernorm import layer_norm
-from clipbert_tpu_torch.ops.linear import linear
+from clipbert_tpu_torch.ops.linear import dense_row_parallel, linear
 
 
 class TextEmbeddings(nn.Module):
@@ -94,20 +97,38 @@ def extended_attention_mask(mask: torch.Tensor) -> torch.Tensor:
 
 
 def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
-            cfg: ModelConfig, fused_attn: bool = False) -> torch.Tensor:
+            cfg: ModelConfig, fused_attn: bool = False,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The post-LN layer stack (reference BertEncoder,
-    transformers.py:429-461)."""
+    transformers.py:429-461).
+
+    With a tensor-parallel ``mesh`` (model axis > 1) the layers hold this
+    rank's Megatron shards (parallel/sharding.py::shard_model): attention
+    runs on the local heads and the FFN intermediate on its local columns;
+    ``attention.output.dense`` and ``output.dense`` are row-parallel, one
+    all-reduce each over the model group (ops/linear.py::
+    dense_row_parallel). LayerNorms and residuals are computed whole on
+    every rank. ``fused_attn`` as in ops/attention.py::multi_head_attention.
+    """
     act = ACT2FN[cfg.hidden_act]
     eps = cfg.layer_norm_eps
+    tp = mesh is not None and mesh.n_model > 1
+
+    def out_dense(x, layer):
+        if tp:
+            return dense_row_parallel(x, layer.weight, layer.bias,
+                                      mesh.model_group)
+        return linear(x, layer)
+
     for lp in p.layers:
         ctx = multi_head_attention(hidden, lp.attention.self,
                                    cfg.num_attention_heads, mask_bias,
-                                   fused=fused_attn)
+                                   fused=fused_attn, mesh=mesh)
         ao = lp.attention.output
-        a = linear(ctx, ao.dense)
+        a = out_dense(ctx, ao.dense)
         hidden = layer_norm(a + hidden, ao.ln.weight, ao.ln.bias, eps)
         inter = act(linear(hidden, lp.intermediate.dense))
-        out = linear(inter, lp.output.dense)
+        out = out_dense(inter, lp.output.dense)
         hidden = layer_norm(out + hidden, lp.output.ln.weight,
                             lp.output.ln.bias, eps)
     return hidden

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from clipbert_tpu_torch.core.config import ModelConfig
+from clipbert_tpu_torch.core.mesh import Mesh
 from clipbert_tpu_torch.models import bert, resnet, visual_embed
 from clipbert_tpu_torch.ops.linear import linear
 
@@ -115,9 +116,11 @@ def base_forward(p: BertBase, cfg: ModelConfig,
                  text_input_mask: torch.Tensor,     # (B, Lt)
                  visual_tokens_grid: torch.Tensor,  # (B, T, H, W, D)
                  compute_dtype=torch.bfloat16,
-                 fused_attn: bool = False):
+                 fused_attn: bool = False,
+                 mesh: Optional[Mesh] = None):
     """ClipBertBaseModel.forward (modeling.py:201-238): returns
-    (sequence_output (B, Lt+Lv, D), pooled (B, D))."""
+    (sequence_output (B, Lt+Lv, D), pooled (B, D)). ``fused_attn`` and
+    ``mesh`` as in bert.encoder."""
     text_emb = bert.text_embeddings(p.embeddings, text_input_ids, cfg,
                                     compute_dtype)
     vis_emb = visual_embed.visual_embeddings(
@@ -129,7 +132,8 @@ def base_forward(p: BertBase, cfg: ModelConfig,
         dim=1)
     hidden = torch.cat([text_emb, vis_emb], dim=1)
     bias = bert.extended_attention_mask(full_mask)
-    hidden = bert.encoder(p.encoder, hidden, bias, cfg, fused_attn=fused_attn)
+    hidden = bert.encoder(p.encoder, hidden, bias, cfg, fused_attn=fused_attn,
+                          mesh=mesh)
     return hidden, bert.pooler(p.pooler, hidden)
 
 
@@ -159,11 +163,14 @@ def clipbert_forward(model: ClipBert, cfg: ModelConfig,
                      batch: Dict[str, torch.Tensor], head_type: str, *,
                      compute_dtype=torch.bfloat16,
                      visual_features: Optional[torch.Tensor] = None,
-                     fused_attn: bool = False) -> Dict[str, torch.Tensor]:
+                     fused_attn: bool = False,
+                     mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """The per-clip unit of work, inference only, one text per visual.
     batch: text_input_ids (B, Lt), text_input_mask (B, Lt), and
     visual_inputs (B, T, H, W, 3) unless ``visual_features`` (precomputed
-    grid features, (B, T, Hg, Wg, D)) is given."""
+    grid features, (B, T, Hg, Wg, D)) is given. ``fused_attn`` and ``mesh``
+    as in bert.encoder: under a tensor-parallel mesh the model holds this
+    rank's shards (parallel/sharding.py::shard_model)."""
     if head_type not in HEAD_TYPES:
         raise ValueError(f"head {head_type!r} is not ported")
     if visual_features is None:
@@ -172,6 +179,6 @@ def clipbert_forward(model: ClipBert, cfg: ModelConfig,
     tp = model.transformer
     _, pooled = base_forward(tp.bert, cfg, batch["text_input_ids"],
                              batch["text_input_mask"], visual_features,
-                             compute_dtype, fused_attn=fused_attn)
+                             compute_dtype, fused_attn=fused_attn, mesh=mesh)
     return {"logits": mlp_head(tp.classifier, pooled),
             "pooled_output": pooled}

@@ -20,8 +20,10 @@ import functools
 import torch
 
 # Kernel launches since the process started (or since a caller reset it).
-# Incremented only where the CUDA kernel is launched.
+# Incremented only where the CUDA kernel is launched; SHARD_HEADS_LAUNCHES
+# counts those made through fused_attention_shard_heads (in LAUNCHES too).
 LAUNCHES = 0
+SHARD_HEADS_LAUNCHES = 0
 
 MAX_SEQ = 640
 MAX_HEAD_DIM = 128
@@ -81,6 +83,40 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"fused_attention runs on cpu or cuda, not "
                          f"{q.device}")
     return _launch(q, k, v, key_bias, scale)
+
+
+def fused_attention_shard_heads(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, key_bias: torch.Tensor,
+                                scale: float, mesh,
+                                num_heads: int) -> torch.Tensor:
+    """The fused core on a tensor-parallel mesh (port of
+    clipbert_tpu/ops/pallas_attention.py::fused_attention_shard_heads).
+
+    The JAX function shard_maps the Pallas kernel over (data: batch, model:
+    heads), and each device runs it on its (batch shard x head shard) with
+    no collective. Here each rank already holds its shard: q/k/v are this
+    rank's ``(B_local, S, num_heads / n_model, dh)`` views (under the
+    Megatron split, strided slices of the rank's merged QKV projection) and
+    key_bias its ``(B_local, S)`` rows. The same hand-written kernel
+    (:func:`fused_attention`) runs on the local heads; nothing is
+    communicated, since attention is independent per head.
+
+    ``num_heads`` is the global head count: it must split over the model
+    axis, and q must hold this rank's share of it. The batch was split
+    where the global batch is known (train/steps.py::make_text_prob_step
+    checks ``B_t % n_data``)."""
+    n_model = mesh.n_model
+    if num_heads % n_model:
+        raise ValueError(f"{num_heads} heads do not split over {n_model} "
+                         "model ranks")
+    if q.dim() != 4 or q.shape[2] != num_heads // n_model:
+        raise ValueError(f"q {tuple(q.shape)} does not hold this rank's "
+                         f"{num_heads // n_model} of {num_heads} heads")
+    global SHARD_HEADS_LAUNCHES
+    out = fused_attention(q, k, v, key_bias, scale)
+    if q.device.type == "cuda":
+        SHARD_HEADS_LAUNCHES += 1
+    return out
 
 
 @functools.cache

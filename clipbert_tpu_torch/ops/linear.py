@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -47,3 +48,21 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return dense(x, layer.weight, layer.bias)
+
+
+def dense_row_parallel(x: torch.Tensor, w_shard: torch.Tensor,
+                       bias: Optional[torch.Tensor],
+                       group: dist.ProcessGroup) -> torch.Tensor:
+    """The row-parallel product of the Megatron split
+    (parallel/sharding.py): ``x`` holds this rank's slice of the input
+    features and ``w_shard`` the matching (out, in / n) columns of the
+    weight. The fp32 partial product is all-reduced (SUM) in fp32 over the
+    model ``group``, then the whole fp32 bias is added once and the result
+    cast once to x's dtype: what GSPMD computes for the JAX package's
+    row-split ``dot(preferred_element_type=f32)``. Nothing is rounded to
+    the activation dtype before the reduce."""
+    y = mm_f32(x.reshape(-1, x.shape[-1]), w_shard.to(x.dtype).t())
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(x.shape[:-1] + (w_shard.shape[0],))

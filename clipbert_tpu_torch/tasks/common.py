@@ -12,6 +12,7 @@ import torch
 from clipbert_tpu_torch.ckpt import checkpoint
 from clipbert_tpu_torch.ckpt.from_jax import load_jax_params
 from clipbert_tpu_torch.core.config import ModelConfig, RunConfig
+from clipbert_tpu_torch.core.mesh import rank_device
 from clipbert_tpu_torch.data import transforms
 from clipbert_tpu_torch.data.store import open_store
 from clipbert_tpu_torch.data.tokenization import BertTokenizer
@@ -49,9 +50,11 @@ def load_model_config(cfg: RunConfig, **overrides) -> ModelConfig:
 
 
 def device_for(cfg: RunConfig) -> torch.device:
-    """The run's device; a CUDA device that is not there is an error, never
-    a silent fall back to the CPU."""
-    device = torch.device(cfg.device)
+    """This process's device: ``--device cuda`` is the process's local card
+    (``cuda:{LOCAL_RANK}``, core/mesh.py::rank_device), so each rank of a
+    torchrun launch drives its own. A CUDA device that is not there is an
+    error, never a silent fall back to the CPU."""
+    device = rank_device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but CUDA is not available "
                            "(pass --device cpu to run the plain versions)")

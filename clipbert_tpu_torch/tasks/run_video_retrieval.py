@@ -8,8 +8,11 @@ R10/MedR/MeanR both directions (reference run_video_retrieval.py:519-625,
 fused 1x1 convs) and the cached grid features are reused across all
 caption minibatches, scored through the fused attention kernel.
 
-One process drives one device: the JAX runner's mesh, data sharding and
-cross-host gather have no counterpart here. Training is a later slice of
+One process drives one device. Under a process group (torchrun, or the
+``--coordinator_address/--num_processes/--process_id`` topology) each
+process scores every ``process_count``-th video on its own card and the
+rows merge on every process (utils/distributed.py::all_gather_objects),
+as the JAX runner shards eval over hosts. Training is a later slice of
 the port: ``main`` refuses it.
 
 Annotation jsonl: eval rows {"vid_id", "txt"}; a caption's id is its line
@@ -18,6 +21,8 @@ index.
     python -m clipbert_tpu_torch.tasks.run_video_retrieval \\
         --config configs/msrvtt_ret_base_resnet50.json --do_inference 1 \\
         --output_dir <dir with model_step_N.npz> [--device cpu]
+    torchrun --nproc_per_node N -m clipbert_tpu_torch.tasks.\\
+        run_video_retrieval <the same flags>
 """
 
 from __future__ import annotations
@@ -36,12 +41,14 @@ import torch
 from clipbert_tpu_torch.core.config import (ModelConfig, RunConfig,
                                             inject_task_attrs,
                                             load_run_config)
+from clipbert_tpu_torch.core.mesh import maybe_init_distributed
 from clipbert_tpu_torch.data import transforms
 from clipbert_tpu_torch.data.datasets import VideoRetrievalEvalDataset
 from clipbert_tpu_torch.evaluation import metrics as eval_metrics
 from clipbert_tpu_torch.models import clipbert
 from clipbert_tpu_torch.tasks import common
 from clipbert_tpu_torch.train import steps
+from clipbert_tpu_torch.utils import distributed as dist
 from clipbert_tpu_torch.utils.basic import load_jsonl, save_json
 
 LOGGER = logging.getLogger(__name__)
@@ -76,6 +83,11 @@ def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
     on a CUDA device. ``use_kernels`` picks the CNN's form
     (models/resnet.py::resnet50_forward; None: the kernel form on a CUDA
     device).
+
+    Under a process group each process scores videos ``process_index``,
+    ``process_index + process_count``, ... on its own device and the rows
+    merge through all_gather_objects, so every process returns the whole
+    matrix; each video must be scored exactly once.
 
     ``stage_stats``: optional dict filled with per-stage wall seconds summed
     over the video loop: ``data_wait_s`` (blocked on decode + H2D from the
@@ -114,10 +126,12 @@ def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
 
     nf = eval_ds.num_frm
     vb = max(1, cfg.inference_video_batch_size)
-    videos = list(range(len(eval_ds)))
+    videos = list(range(dist.process_index(), len(eval_ds),
+                        dist.process_count()))
     groups = [videos[i:i + vb] for i in range(0, len(videos), vb)]
     st = {"setup_s": 0.0, "data_wait_s": 0.0, "dispatch_s": 0.0,
-          "fetch_s": 0.0, "n_groups": 0, "decode_s": 0.0, "put_s": 0.0}
+          "fetch_s": 0.0, "n_groups": 0, "decode_s": 0.0, "put_s": 0.0,
+          "n_videos": len(videos)}
     st_lock = threading.Lock()
     local = threading.local()
 
@@ -211,7 +225,13 @@ def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
     if stage_stats is not None:
         stage_stats.update(st)
 
-    score_matrix = np.stack([s for _, s in sorted(rows, key=lambda r: r[0])])
+    rows = sorted((r for part in dist.all_gather_objects(rows)
+                   for r in part), key=lambda r: r[0])
+    scored = [v for v, _ in rows]
+    if scored != list(range(len(eval_ds))):
+        raise RuntimeError(f"{len(eval_ds)} videos, but the processes "
+                           f"scored {scored}: each must be scored once")
+    score_matrix = np.stack([s for _, s in rows])      # (n_videos, n_caps)
 
     # captions are rows in the metric convention -> transpose
     vid_pos = {v: i for i, v in enumerate(eval_ds.video_ids)}
@@ -243,7 +263,7 @@ def start_inference(cfg: RunConfig) -> Dict:
         max_txt_len=cfg.max_txt_len, ensemble_n_clips=cfg.inference_n_clips,
         device_preprocess=cfg.device_preprocess)
     m = inference_retrieval(cfg, model_cfg, model, ds, compute_dtype)
-    if cfg.output_dir:
+    if dist.is_main_process() and cfg.output_dir:
         out = {k: v for k, v in m.items() if k != "score_matrix"}
         save_json(out, os.path.join(
             cfg.output_dir, f"retrieval_metrics_step{step}.json"))
@@ -253,6 +273,8 @@ def start_inference(cfg: RunConfig) -> Dict:
 
 def main(argv=None) -> Dict:
     cfg = load_run_config(argv)
+    # join the launch's process group before the device is first touched
+    maybe_init_distributed(cfg)
     if not cfg.do_inference:
         raise SystemExit(
             "clipbert_tpu_torch.tasks.run_video_retrieval runs inference "

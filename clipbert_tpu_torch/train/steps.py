@@ -3,8 +3,12 @@ retrieval serving and eval paths run: the clip-folded ``mil_forward`` for
 eval, the cached-feature encode and scoring steps).
 
 The JAX steps are jitted programs memoized per configuration; here a step
-is a plain closure run eagerly under ``torch.inference_mode``. There is no
-mesh and no shard_map: the port drives one device.
+is a plain closure run eagerly under ``torch.inference_mode``. A process
+drives one device. The scoring steps take a (data, model) ``Mesh`` of
+ranks (core/mesh.py): each rank scores its data shard of the captions with
+the encoder Megatron-split over the model axis, and the shards are
+gathered over the data axis, where the JAX steps let GSPMD and shard_map
+split one program over the devices.
 """
 
 from __future__ import annotations
@@ -13,8 +17,10 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from clipbert_tpu_torch.core.config import ModelConfig
+from clipbert_tpu_torch.core.mesh import Mesh
 from clipbert_tpu_torch.models import clipbert
 from clipbert_tpu_torch.ops import kernels_default
 
@@ -107,18 +113,49 @@ def make_visual_encode_step(compute_dtype=torch.bfloat16,
     return step
 
 
+def fused_attn_default(device: torch.device, mesh: Optional[Mesh] = None,
+                       num_heads: int = 12) -> bool:
+    """Whether the scoring steps run the attention core through the fused
+    kernel (clipbert_tpu/train/steps.py:459-490). The kernel runs where
+    ops.kernels_default puts the port's kernels: on a CUDA device. A
+    data-parallel mesh runs the whole step per rank on its caption shard,
+    and a tensor-parallel one runs the kernel on each rank's heads
+    (ops/fused_attention.py::fused_attention_shard_heads), or takes einsum
+    when the heads do not split over its model axis. Where the JAX
+    selector returns the tensor-parallel mesh itself, this returns True:
+    the mesh reaches the attention core on its own argument."""
+    if not kernels_default(device):
+        return False
+    return mesh is None or num_heads % mesh.n_model == 0
+
+
+def _data_shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's contiguous block of ``x``'s rows on the data axis."""
+    n = mesh.n_data
+    if x.shape[0] % n:
+        raise ValueError(f"caption minibatch of {x.shape[0]} does not split "
+                         f"over the {n} data ranks of the mesh")
+    w = x.shape[0] // n
+    return x[mesh.data_idx * w:(mesh.data_idx + 1) * w]
+
+
 def make_text_score_step(cfg: ModelConfig, ts: TaskSettings,
                          compute_dtype=torch.bfloat16,
-                         fused_attn: Optional[bool] = None) -> Callable:
+                         fused_attn: Optional[bool] = None,
+                         mesh: Optional[Mesh] = None) -> Callable:
     """(model, feats (B_v, nc, T, Hg, Wg, D), ids (B_t, Lt), mask) ->
     (B_v, B_t, nc, L) logits: every (video, clip) paired with every text in
-    one BERT batch of B_v*nc*B_t sequences. ``fused_attn=None`` takes the
-    kernel when the features lie on a CUDA device."""
+    one BERT batch of B_v*nc*B_t sequences. ``fused_attn=None`` takes
+    :func:`fused_attn_default`. Under a tensor-parallel ``mesh`` the model
+    holds this rank's Megatron shards (parallel/sharding.py::shard_model)
+    and scores the captions it is given; make_text_prob_step splits the
+    captions over the data axis."""
 
     @torch.inference_mode()
     def step(model, feats, ids, mask):
-        fused = (kernels_default(feats.device) if fused_attn is None
-                 else fused_attn)
+        fused = (fused_attn_default(feats.device, mesh,
+                                    cfg.num_attention_heads)
+                 if fused_attn is None else fused_attn)
         B_v, nc = feats.shape[:2]
         B_t = ids.shape[0]
         f = feats.reshape((B_v * nc,) + feats.shape[2:])
@@ -128,7 +165,7 @@ def make_text_score_step(cfg: ModelConfig, ts: TaskSettings,
             {"text_input_ids": ids.repeat(B_v * nc, 1),
              "text_input_mask": mask.repeat(B_v * nc, 1)},
             ts.head_type, compute_dtype=compute_dtype, visual_features=f,
-            fused_attn=fused)
+            fused_attn=fused, mesh=mesh)
         return out["logits"].reshape(B_v, nc, B_t, -1).transpose(1, 2)
 
     return step
@@ -136,21 +173,36 @@ def make_text_score_step(cfg: ModelConfig, ts: TaskSettings,
 
 def make_text_prob_step(cfg: ModelConfig, ts: TaskSettings,
                         compute_dtype=torch.bfloat16,
-                        fused_attn: Optional[bool] = None) -> Callable:
+                        fused_attn: Optional[bool] = None,
+                        mesh: Optional[Mesh] = None) -> Callable:
     """Like make_text_score_step plus clip pooling and softmax/sigmoid:
     (B_v, B_t) fp32 positive-class probabilities
-    (run_video_retrieval.py:679-682)."""
-    score = make_text_score_step(cfg, ts, compute_dtype, fused_attn)
+    (run_video_retrieval.py:679-682).
+
+    With a ``mesh`` every rank is given the whole caption minibatch (B_t
+    must split over the data axis, as the JAX step requires), scores its
+    data shard, and the (B_v, B_t / n_data) shards are gathered over the
+    data group in data order, so every rank returns what the JAX step's
+    global array holds."""
+    score = make_text_score_step(cfg, ts, compute_dtype, fused_attn, mesh)
 
     @torch.inference_mode()
     def step(model, feats, ids, mask):
+        if mesh is not None:
+            ids, mask = _data_shard(ids, mesh), _data_shard(mask, mesh)
         clip_logits = score(model, feats, ids, mask)   # (B_v, B_t, nc, L)
         B_v, B_t = clip_logits.shape[:2]
         pooled = pool_clip_logits(
             clip_logits.reshape((-1,) + clip_logits.shape[2:]),
             ts.score_agg_func).float().reshape(B_v, B_t, -1)
         if ts.loss_type == "ce":
-            return torch.softmax(pooled, dim=-1)[..., 1]
-        return torch.sigmoid(pooled[..., 0])
+            probs = torch.softmax(pooled, dim=-1)[..., 1]
+        else:
+            probs = torch.sigmoid(pooled[..., 0])
+        if mesh is None or mesh.n_data == 1:
+            return probs
+        parts = [torch.empty_like(probs) for _ in range(mesh.n_data)]
+        dist.all_gather(parts, probs.contiguous(), group=mesh.data_group)
+        return torch.cat(parts, dim=1)
 
     return step

@@ -219,7 +219,8 @@ def test_inference_retrieval_matches_jax(world, jax_eval, device_preprocess):
             assert got[k] == want[k], k
     assert stats["n_groups"] == 3 and ds.n_fallbacks == 0
     assert set(stats) == {"setup_s", "data_wait_s", "dispatch_s", "fetch_s",
-                          "n_groups", "decode_s", "put_s"}
+                          "n_groups", "decode_s", "put_s", "n_videos"}
+    assert stats["n_videos"] == N_VIDEOS
 
 
 def test_cli_runs_a_jax_deploy_checkpoint(world, jax_eval, tmp_path):

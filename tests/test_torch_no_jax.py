@@ -55,8 +55,13 @@ assert mba.LAUNCHES == 0 and fsp.LAUNCHES == 0
 assert sys.modules["jax"] is None
 print("PORT_OK")
 """
-# modules this slice of the port added; the walk above must reach them all
-NEW_MODULES = ["clipbert_tpu_torch.ops.matmul_bn_act",
+# modules the later slices of the port added; the walk above must reach
+# them all
+NEW_MODULES = ["clipbert_tpu_torch.core.mesh",
+               "clipbert_tpu_torch.utils.distributed",
+               "clipbert_tpu_torch.parallel",
+               "clipbert_tpu_torch.parallel.sharding",
+               "clipbert_tpu_torch.ops.matmul_bn_act",
                "clipbert_tpu_torch.ops.fused_stem_pool",
                "clipbert_tpu_torch.evaluation.metrics",
                "clipbert_tpu_torch.data.store",
