@@ -7,13 +7,20 @@ Phases; any failure raises and the script exits non-zero:
  1. device: requires CUDA; prints the card's name and power limit as
     nvidia-smi gives them; turns TF32 off for the fp32 comparisons.
  2. build: compiles the three csrc/*.cu libraries with nvcc, one process
-    per source, all started together (timed), and prints each one's ptxas
-    register and spill lines.
+    per source, all started together (timed), and prints each kernel's
+    ptxas registers and spills; every instantiation of the attention
+    kernel's tensor-core body must spill nothing.
  3. kernel vs plain, fused attention: the kernel against its plain PyTorch
-    version at the serving, eval, ragged and longest shapes, fp32 and bf16,
-    contiguous operands, strided views of one merged QKV tensor and views
-    whose rows miss 16-byte alignment; timed with CUDA events at the
-    serving and eval shapes beside SDPA.
+    version at the serving, eval, ragged, tensor-core edge and longest
+    shapes, fp32 and bf16, contiguous operands, strided views of one merged
+    QKV tensor and views whose rows miss 16-byte alignment, each case
+    printing the body that ran (ops/fused_attention.py::_plan: the
+    tensor-core body "tc" for bf16 with dh % 16 == 0 and S <= 128, else the
+    fp32 CUDA-core body "v2") and checking the counters agree. At the
+    serving and eval shapes, the tc body, the v2 body (forced, and held to
+    the same bound), the plain version and SDPA are timed in turns, each as
+    the replay of a CUDA graph of its calls (device time: at the small
+    shapes a call's host work outlasts its device work).
  4. kernel vs plain, matmul_bn_act: every distinct 1x1 conv of ResNet-50 at
     32 frames of 448^2 plus ragged shapes, fp32 and bf16; timed at the
     res2 conv3 and a res4 conv1 shape beside addmm + residual + ReLU.
@@ -24,7 +31,8 @@ Phases; any failure raises and the script exits non-zero:
     base_model.json with random weights from a seeded generator, at 1 and
     16 clips, requests of 1, 5 and 32 captions on seeded uint8 240x320
     frames. Counts from 0: every scoring call must launch attention once
-    per encoder layer, every encode 36 fused 1x1 convs and one fused stem.
+    per encoder layer, on the tensor-core body, every encode 36 fused 1x1
+    convs and one fused stem.
     Then the CNN's kernel form and cuDNN form in turns; their grid features
     on the same frames must agree within FEAT_REL, and the kernel form with
     a planted wiring fault must not. Then one request through the plain
@@ -34,19 +42,21 @@ Phases; any failure raises and the script exits non-zero:
     settings (16 clips x 2 frames at 448^2, text length 20, bf16, folded
     BN) on a synthetic store of 16 seeded 240x320 JPEG-sequence videos and
     72 captions. Counts from 0: 36 + 1 CNN launches per encode, 12
-    attention launches per prob dispatch. Then the same eval in the cuDNN
-    form; the score matrices must agree within PROB_ATOL, and the first
-    video group's grid features within FEAT_REL, as in phase 6.
+    attention launches per prob dispatch, all on the tensor-core body.
+    Then the same eval in the cuDNN form; the score matrices must agree
+    within PROB_ATOL, and the first video group's grid features within
+    FEAT_REL, as in phase 6.
  8. the bench unit (bench.py's mil_forward at 8 videos x 16 clips and 128
     videos x 1 clip), kernel form against cuDNN form in turns, clips/s.
 10. tensor-parallel scoring at full width: fused_attention_shard_heads
     against its plain version at the head-shard shapes (6 and 3 local
-    heads, strided views of a rank's merged QKV), timed beside SDPA; then
-    2 ranks on a (1 data x 2 model) mesh and 4 ranks on a (2 x 2) mesh,
-    spawned on this one card over gloo, each Megatron-splitting the same
-    seeded model and running make_text_prob_step(mesh=) on 1 video x 16
-    clips x 8 captions. Counts from 0 in every rank: exactly 12 kernel
-    launches per call, at 6 local heads. Every rank's probabilities must
+    heads, strided views of a rank's merged QKV), timed as in phase 3
+    beside the v2 body and SDPA; then 2 ranks on a (1 data x 2 model)
+    mesh and 4 ranks on a (2 x 2) mesh, spawned on this one card over
+    gloo, each Megatron-splitting the same seeded model and running
+    make_text_prob_step(mesh=) on 1 video x 16 clips x 8 captions. Counts
+    from 0 in every rank: exactly 12 kernel launches per call, all on the
+    tensor-core body, at 6 local heads. Every rank's probabilities must
     agree with the single-process kernel path within PROB_ATOL and its
     final hidden states within TP_HIDDEN_REL, in bf16 and in fp32; one
     planted fault (one layer's row-parallel reduce dropped on one rank)
@@ -56,8 +66,15 @@ Phases; any failure raises and the script exits non-zero:
     inference_retrieval on phase 7's store; every video is scored once,
     the merged matrix is bit-identical to phase 7's (the same group and
     minibatch shapes), and its R@K is the merged matrix's.
- 9. the last two lines: the kernels' JSON record, then
-    {"ok": true, "device": {...}}.
+12. the attention bodies end to end, in turns: the tensor-core body
+    against the v2 body (forced for this measurement only) in the scoring
+    call of a 1-clip and a 16-clip request with 32 captions (windows tc,
+    v2, v2, tc, v2, tc, tc, v2), and in phase 7's eval (tc, v2, v2, tc);
+    the tc eval's matrix must be bit-identical to phase 7's and the v2
+    eval's within PROB_ATOL of it.
+ 9. the last two lines: the kernels' JSON record (each kernel's design, and
+    for the attention kernels the v2 body's time beside the tc body's as
+    ``earlier_ms``), then {"ok": true, "device": {...}}.
 
 The ranks of phases 10 and 11 share the one card, so their process group
 runs over gloo, passed explicitly (NCCL refuses two ranks on one device):
@@ -70,8 +87,10 @@ Imports nothing of JAX. Needs one card, nvcc and a few minutes.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -115,6 +134,10 @@ SHAPES = [(32, 69, 12, 64, "serve 1 clip x 32 captions"),
           (8192, 69, 12, 64, "eval scoring batch"),
           (3, 11, 4, 8, "ragged"),
           (129, 7, 4, 8, "ragged"),
+          (3, 1, 2, 16, "tensor-core edge: one key"),
+          (5, 17, 3, 48, "tensor-core edge: 2 warps, 15 padded keys"),
+          (2, 128, 2, 128, "tensor-core limit: S 128, dh 128"),
+          (3, 129, 2, 64, "just past the tensor-core limit"),
           (2, 620, 12, 64, "longest sequence")]
 TIMED = SHAPES[:3]
 # fp32: both sides sum the same fp32 products in another order (one warp
@@ -193,6 +216,39 @@ def phase_device() -> None:
           "(the fp32 comparisons need full fp32)")
 
 
+def _kernel_name(mangled: str) -> str:
+    """A readable name for a mangled template kernel of csrc/, e.g.
+    fused_attention_tc_kernel<5, 4> (Li5E is the int 5, Lb1E the bool
+    true, 13__nv_bfloat16 and f the types)."""
+    m = re.search(r"([a-z_]+_kernel)I(\w+?)EEv", mangled)
+    if not m:
+        return mangled
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+    args = re.sub(r"L[ib](\d+)E", r"\1,", args)
+    if args.startswith("f"):
+        args = "float," + args[1:]
+    return f"{m.group(1)}<{args.rstrip(',').replace(',', ', ')}>"
+
+
+def _ptxas_report(log: str):
+    """{kernel: [registers, spill store bytes, spill load bytes]} from the
+    report of nvcc -Xptxas -v, kernels named by _kernel_name."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            report[name] = [None, None, None]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            report[name][1:] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name][0] = int(m.group(1))
+    return report
+
+
 def phase_build() -> float:
     t0 = time.perf_counter()
     paths = _build.build_libraries(LIBRARIES)
@@ -201,11 +257,22 @@ def phase_build() -> float:
     dt = time.perf_counter() - t0
     print(f"build: {len(paths)} libraries in {dt:.2f} s (one nvcc each, "
           "in parallel)")
+    spilled = []
     for name, path in paths.items():
         print(f"  {os.path.relpath(path, ROOT)}")
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    ptxas: {line.strip()}")
+        report = _ptxas_report(path.with_suffix(".log").read_text())
+        for kern, (regs, st, ld) in report.items():
+            print(f"    ptxas: {kern}: {regs} registers, spill stores {st} "
+                  f"B, spill loads {ld} B")
+            if "fused_attention_tc_kernel" in kern and (st or ld):
+                spilled.append(kern)
+    n_tc = sum("fused_attention_tc_kernel" in k for k in
+               _ptxas_report(paths["fused_attention"].with_suffix(".log")
+                             .read_text()))
+    print(f"build: {n_tc} instantiations of the attention kernel's "
+          f"tensor-core body, {len(spilled)} spilling")
+    if spilled or not n_tc:
+        raise AssertionError(f"the tensor-core body spills in {spilled}")
     return dt
 
 
@@ -239,57 +306,111 @@ def _inputs(B, S, H, dh, dtype, layout, gen):
     return q, k, v, bias
 
 
-def _time_ms(fn, iters: int) -> float:
+def _time_ms(fn, iters: int, graph: bool = False) -> float:
+    """Milliseconds per call of ``iters`` calls back to back, by CUDA
+    events. ``graph``: the calls are captured in one CUDA graph and
+    replayed, so the time is the device's alone; without it a call whose
+    device work is shorter than its host work times the host."""
     for _ in range(3):
         fn()
+    run = fn
+    if graph:
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        run, iters_run = g.replay, 1
+    else:
+        iters_run = iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(iters_run):
+        run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def _in_turns(kern, plain, iters, library=None):
-    """(kernel ms, plain ms, library ms): each timed twice in turns
-    (plain, kernel, kernel, plain [, library, library])."""
-    p1, k1, k2, p2 = (_time_ms(f, iters) for f in (plain, kern, kern, plain))
-    lib = None
-    if library is not None:
-        lib = (_time_ms(library, iters) + _time_ms(library, iters)) / 2
-    return (k1 + k2) / 2, (p1 + p2) / 2, lib, (k1, k2, p1, p2)
+def _in_turns(kern, plain, iters, library=None, earlier=None, graph=False):
+    """{"kernel", "plain"[, "library"][, "earlier"]: [ms, ms]}: each timed
+    twice in turns (plain, kernel[, earlier, earlier], kernel, plain[,
+    library, library]); ``earlier`` is an earlier design of the kernel;
+    ``graph`` as for _time_ms."""
+    order = (["plain", "kernel"] + ["earlier"] * 2 * (earlier is not None)
+             + ["kernel", "plain"] + ["library"] * 2 * (library is not None))
+    fns = {"kernel": kern, "plain": plain, "library": library,
+           "earlier": earlier}
+    ms = {}
+    for name in order:
+        ms.setdefault(name, []).append(_time_ms(fns[name], iters, graph))
+    return ms
+
+
+def _timing(ms, bound):
+    """A kernel record's timing keys from _in_turns' windows."""
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    return {"ms": mean["kernel"], "plain_ms": mean["plain"],
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": mean.get("library"),
+            "earlier_ms": mean.get("earlier")}
+
+
+def _windows(ms, name):
+    return " / ".join(f"{t:.4f}" for t in ms[name])
+
+
+def _attention_check(B, S, H, dh, what, dtype, layout, gen, body=None):
+    """One case of the kernel against its plain version; returns the max
+    abs error. The counters must show the body _plan chose (or ``body``)."""
+    scale = 1.0 / dh ** 0.5
+    q, k, v, bias = _inputs(B, S, H, dh, dtype, layout, gen)
+    plan = fa._plan(B, S, H, dh, dtype, fa._aligned16(q, k, v), body)
+    # plain first: the kernel's fresh output buffer can then never be a
+    # stale copy of this comparison's reference
+    ref = fa.fused_attention_reference(q, k, v, bias, scale)
+    before = (fa.LAUNCHES, fa.TC_LAUNCHES)
+    out = (fa.fused_attention(q, k, v, bias, scale) if body is None
+           else fa._launch(q, k, v, bias, scale, body=body))
+    torch.cuda.synchronize()
+    ran = (fa.LAUNCHES - before[0], fa.TC_LAUNCHES - before[1])
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if dtype == torch.float32:
+        ok = bool((diff <= FP32_TOL + FP32_TOL * ref.float().abs()).all())
+    else:
+        ok = err <= BF16_ATOL
+    staging = ("16-byte" if plan.body == "v2" else "cp.async") \
+        if plan.vec else "element-wise"
+    print(f"kernel vs plain {(B, S, H, dh)} {what} {str(dtype)[6:]} "
+          f"{layout}: body {plan.body} ({32 * plan.warps} threads, "
+          f"{plan.smem_bytes} B shared, {staging} staging"
+          f"{', forced' if body else ''}): max_abs_err {err:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if ran != (1, int(plan.body == "tc")):
+        raise AssertionError(f"fused_attention at {(B, S, H, dh)} {dtype}: "
+                             f"counters moved {ran}, plan {plan}")
+    if not ok:
+        raise AssertionError(f"fused_attention disagrees with its plain "
+                             f"version at {(B, S, H, dh)} {dtype} {layout} "
+                             f"(body {plan.body}): {err}")
+    return err
 
 
 def phase_attention(gen):
     bf16_err = 0.0
     for B, S, H, dh, what in SHAPES:
-        scale = 1.0 / dh ** 0.5
         for dtype in (torch.float32, torch.bfloat16):
             for layout in LAYOUTS:
-                q, k, v, bias = _inputs(B, S, H, dh, dtype, layout, gen)
-                # plain first: the kernel's fresh output buffer can then
-                # never be a stale copy of this comparison's reference
-                ref = fa.fused_attention_reference(q, k, v, bias, scale)
-                out = fa.fused_attention(q, k, v, bias, scale)
-                torch.cuda.synchronize()
-                diff = (out.float() - ref.float()).abs()
-                err = diff.max().item()
-                if dtype == torch.float32:
-                    bound = FP32_TOL + FP32_TOL * ref.float().abs()
-                    ok = bool((diff <= bound).all())
-                else:
-                    ok = err <= BF16_ATOL
+                err = _attention_check(B, S, H, dh, what, dtype, layout, gen)
+                if dtype == torch.bfloat16:
                     bf16_err = max(bf16_err, err)
-                print(f"kernel vs plain {(B, S, H, dh)} {what} "
-                      f"{str(dtype)[6:]} {layout}: max_abs_err {err:.3e} "
-                      f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"fused_attention disagrees with its "
-                                         f"plain version at {(B, S, H, dh)} "
-                                         f"{dtype} {layout}: {err}")
-                del q, k, v, bias, out, ref, diff
+    for B, S, H, dh, what in TIMED:
+        # the earlier body, timed below beside the tensor-core body
+        _attention_check(B, S, H, dh, what, torch.bfloat16,
+                         "merged-qkv views", gen, body="v2")
     times = {}
     for B, S, H, dh, what in TIMED:
         q, k, v, bias = _inputs(B, S, H, dh, torch.bfloat16,
@@ -299,18 +420,22 @@ def phase_attention(gen):
         # SDPA with the same additive key mask, on (B, H, S, dh) views
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = bias[:, None, None, :].to(torch.bfloat16)
-        k_ms, p_ms, lib_ms, (k1, k2, p1, p2) = _in_turns(
+        ms = _in_turns(
             lambda: fa.fused_attention(q, k, v, bias, scale),
             lambda: fa.fused_attention_reference(q, k, v, bias, scale),
             iters,
             lambda: F.scaled_dot_product_attention(qt, kt, vt, mask,
-                                                   scale=scale))
+                                                   scale=scale),
+            lambda: fa._launch(q, k, v, bias, scale, body="v2"), graph=True)
         nbytes = 4 * B * S * H * dh * 2 + B * S * 4
         bound = _bound_ms(4 * B * H * S * S * dh, nbytes)
-        times[(B, S, H, dh)] = (k_ms, p_ms, lib_ms, bound)
-        print(f"time bf16 {(B, S, H, dh)} {what}: kernel {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, SDPA "
-              f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        times[(B, S, H, dh)] = _timing(ms, bound)
+        print(f"time bf16 {(B, S, H, dh)} {what} (device time, CUDA "
+              f"graph of {iters} calls): tc body "
+              f"{_windows(ms, 'kernel')} ms, v2 body "
+              f"{_windows(ms, 'earlier')} ms, plain {_windows(ms, 'plain')} "
+              f"ms, SDPA {_windows(ms, 'library')} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
         del q, k, v, bias, qt, kt, vt, mask
     torch.cuda.empty_cache()
     return bf16_err, times
@@ -395,18 +520,19 @@ def phase_matmul_bn_act(gen):
             y = torch.addmm(b16, x, w)
             return torch.relu(y + r if r is not None else y)
 
-        k_ms, p_ms, lib_ms, (k1, k2, p1, p2) = _in_turns(
+        ms = _in_turns(
             lambda: mba.matmul_bn_act(x, w, None, b, r),
             lambda: mba.matmul_bn_act_reference(x, w, None, b, r), 10,
             library)
         nbytes = (R * K + K * N + R * N * (2 if res else 1)) * 2 + N * 4
         bound = _bound_ms(2 * R * K * N, nbytes)
-        times[(R, K, N, res)] = (k_ms, p_ms, lib_ms, bound)
+        t = times[(R, K, N, res)] = _timing(ms, bound)
         print(f"time bf16 matmul_bn_act R={R} K={K} N={N} residual={res}: "
-              f"kernel {k1:.4f} / {k2:.4f} ms "
-              f"({2 * R * K * N / k_ms / 1e9:.1f} TFLOP/s), plain {p1:.4f} / "
-              f"{p2:.4f} ms, addmm+residual+relu {lib_ms:.4f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]})")
+              f"kernel {_windows(ms, 'kernel')} ms "
+              f"({2 * R * K * N / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{_windows(ms, 'plain')} ms, addmm+residual+relu "
+              f"{t['library_ms']:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
         del x, w, b, r, b16
     torch.cuda.empty_cache()
     return bf16_err, times
@@ -442,7 +568,7 @@ def phase_stem(gen):
     xc = x.permute(0, 3, 1, 2)                    # channels_last view
     wc = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     b16 = b.to(torch.bfloat16)[None, :, None, None]
-    k_ms, p_ms, lib_ms, (k1, k2, p1, p2) = _in_turns(
+    ms = _in_turns(
         lambda: fsp.fused_stem_pool(x, w, b),
         lambda: fsp.fused_stem_pool_reference(x, w, b), 10,
         lambda: F.max_pool2d(torch.relu(F.conv2d(xc, wc, None, 2, 3) + b16),
@@ -450,13 +576,14 @@ def phase_stem(gen):
     nbytes = (FRAMES * 448 * 448 * 3 + FRAMES * 112 * 112 * 64) * 2 + \
         64 * 147 * 2 + 64 * 4
     bound = _bound_ms(2 * FRAMES * 224 * 224 * 64 * 147, nbytes)
+    t = _timing(ms, bound)
     print(f"time bf16 fused_stem_pool {(FRAMES, 448, 448)}: kernel "
-          f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, cuDNN "
-          f"conv+bias+relu+max_pool2d {lib_ms:.4f} ms, bound "
+          f"{_windows(ms, 'kernel')} ms, plain {_windows(ms, 'plain')} ms, "
+          f"cuDNN conv+bias+relu+max_pool2d {t['library_ms']:.4f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]})")
     del x, w, b, xc, wc, b16
     torch.cuda.empty_cache()
-    return bf16_err, (k_ms, p_ms, lib_ms, bound)
+    return bf16_err, t
 
 
 @contextlib.contextmanager
@@ -528,11 +655,14 @@ def _captions(rng, n):
 
 
 def _reset_counts():
-    fa.LAUNCHES = fa.SHARD_HEADS_LAUNCHES = mba.LAUNCHES = fsp.LAUNCHES = 0
+    fa.LAUNCHES = fa.TC_LAUNCHES = fa.SHARD_HEADS_LAUNCHES = 0
+    mba.LAUNCHES = fsp.LAUNCHES = 0
 
 
 def _counts():
-    return fa.LAUNCHES, mba.LAUNCHES, fsp.LAUNCHES
+    """(attention, matmul_bn_act, fused_stem_pool, attention on the
+    tensor-core body) launches."""
+    return fa.LAUNCHES, mba.LAUNCHES, fsp.LAUNCHES, fa.TC_LAUNCHES
 
 
 def _expect(what, got, want):
@@ -595,13 +725,16 @@ def phase_slice(model, cfg, tok):
                 d = [a - b for a, b in zip(_counts(), before)]
                 _expect("scoring call, attention", d[0],
                         cfg.num_hidden_layers)
+                _expect("scoring call, attention on the tensor-core body",
+                        d[3], cfg.num_hidden_layers)
                 _expect("encode, matmul_bn_act", d[1], MBA_PER_ENCODE)
                 _expect("encode, fused_stem_pool", d[2], 1)
     launches = _counts()
     print(f"serving path: {n_calls} requests launched attention "
-          f"{launches[0]}, matmul_bn_act {launches[1]} and fused_stem_pool "
-          f"{launches[2]} times ({cfg.num_hidden_layers}, {MBA_PER_ENCODE} "
-          "and 1 per request)")
+          f"{launches[0]} ({launches[3]} on the tensor-core body), "
+          f"matmul_bn_act {launches[1]} and fused_stem_pool {launches[2]} "
+          f"times ({cfg.num_hidden_layers}, {MBA_PER_ENCODE} and 1 per "
+          "request)")
     for nc in frames:
         per = ", ".join(f"{n} caption(s) {np.median(lat[nc][n]) * 1e3:.2f} ms"
                         for n in REQUEST_SIZES)
@@ -759,12 +892,14 @@ def phase_eval(model, model_cfg, tok, cfg, d):
             g = stats["n_groups"]
             _expect("eval, attention", launches[0],
                     model_cfg.num_hidden_layers * g * n_cap_batches)
+            _expect("eval, attention on the tensor-core body", launches[3],
+                    launches[0])
             _expect("eval, matmul_bn_act", launches[1], MBA_PER_ENCODE * g)
             _expect("eval, fused_stem_pool", launches[2], g)
             print(f"eval path: {g} video groups x {n_cap_batches} caption "
-                  f"minibatches launched attention {launches[0]}, "
-                  f"matmul_bn_act {launches[1]} and fused_stem_pool "
-                  f"{launches[2]} times")
+                  f"minibatches launched attention {launches[0]} "
+                  f"({launches[3]} on the tensor-core body), matmul_bn_act "
+                  f"{launches[1]} and fused_stem_pool {launches[2]} times")
         _check_matrix(m["score_matrix"])
         if ds.n_fallbacks:
             raise AssertionError(f"{ds.n_fallbacks} videos did not decode")
@@ -917,7 +1052,7 @@ def _tp_work(rank, model_parallel, cfg, feats, ids, mask):
     with _encoder_output([]) as kept:
         probs = step(model, feats, ids, mask)
     torch.cuda.synchronize()
-    launches = (fa.LAUNCHES, fa.SHARD_HEADS_LAUNCHES)
+    launches = (fa.LAUNCHES, fa.SHARD_HEADS_LAUNCHES, fa.TC_LAUNCHES)
     fa.fused_attention = kernel
     ms = []
     for _ in range(TP_REPEATS):
@@ -974,8 +1109,9 @@ def _shard_heads_vs_plain(gen):
     """fused_attention_shard_heads against its plain version at the head
     shards of a 2-way and a 4-way model axis (B = 1 video x 16 clips x 8
     captions, S = 69, 6 and 3 heads, strided views of the rank's merged QKV
-    with row pitch 3 D / n_model); timed at 6 heads beside SDPA. The
-    kernel communicates nothing, so a mesh that only describes the rank's
+    with row pitch 3 D / n_model): the tensor-core body in bf16, v2 in
+    fp32; timed at 6 heads beside the v2 body and SDPA. The kernel
+    communicates nothing, so a mesh that only describes the rank's
     layout is all it needs here."""
     B, S, dh, heads = TP_CLIPS * TP_CAPTIONS, 69, 64, 12
     bf16_err = 0.0
@@ -987,9 +1123,13 @@ def _shard_heads_vs_plain(gen):
                                     gen)
             scale = dh ** -0.5
             ref = fa.fused_attention_reference(q, k, v, bias, scale)
+            tc_before = fa.TC_LAUNCHES
             out = fa.fused_attention_shard_heads(q, k, v, bias, scale, mesh,
                                                  heads)
             torch.cuda.synchronize()
+            body = "tc" if fa.TC_LAUNCHES > tc_before else "v2"
+            if body != ("tc" if dtype == torch.bfloat16 else "v2"):
+                raise AssertionError(f"shard_heads {dtype} ran body {body}")
             diff = (out.float() - ref.float()).abs()
             err = diff.max().item()
             if dtype == torch.float32:
@@ -999,7 +1139,8 @@ def _shard_heads_vs_plain(gen):
                 ok = err <= BF16_ATOL
                 bf16_err = max(bf16_err, err)
             print(f"shard_heads vs plain {(B, S, H, dh)} row pitch "
-                  f"{q.stride(1)} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                  f"{q.stride(1)} {str(dtype)[6:]}: body {body}: "
+                  f"max_abs_err {err:.3e} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"fused_attention_shard_heads disagrees "
@@ -1011,19 +1152,23 @@ def _shard_heads_vs_plain(gen):
     scale = dh ** -0.5
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = bias[:, None, None, :].to(torch.bfloat16)
-    k_ms, p_ms, lib_ms, (k1, k2, p1, p2) = _in_turns(
+    ms = _in_turns(
         lambda: fa.fused_attention_shard_heads(q, k, v, bias, scale,
                                                Mesh(1, 2), heads),
         lambda: fa.fused_attention_reference(q, k, v, bias, scale), 200,
         lambda: F.scaled_dot_product_attention(qt, kt, vt, mask,
-                                               scale=scale))
+                                               scale=scale),
+        lambda: fa._launch(q, k, v, bias, scale, body="v2"), graph=True)
     bound = _bound_ms(4 * B * H * S * S * dh, 4 * B * S * H * dh * 2
                       + B * S * 4)
-    print(f"time bf16 shard_heads {(B, S, H, dh)} row pitch {q.stride(1)}: "
-          f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
-          f"SDPA {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    print(f"time bf16 shard_heads {(B, S, H, dh)} row pitch {q.stride(1)} "
+          f"(device time, CUDA graph of 200 calls): "
+          f"tc body {_windows(ms, 'kernel')} ms, v2 body "
+          f"{_windows(ms, 'earlier')} ms, plain {_windows(ms, 'plain')} ms, "
+          f"SDPA {_windows(ms, 'library')} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]})")
     torch.cuda.empty_cache()
-    return bf16_err, (k_ms, p_ms, lib_ms, bound)
+    return bf16_err, _timing(ms, bound)
 
 
 def phase_tp(model, cfg, tok, d, gen, eval_inputs):
@@ -1100,7 +1245,8 @@ def phase_tp(model, cfg, tok, d, gen, eval_inputs):
             heads = {shape[2] for shape, _ in out["shapes"]}
             pitch = {p for _, p in out["shapes"]}
             print(f"{what}, rank {r} at {out['idx']}: launches "
-                  f"(fused_attention, shard_heads) {out['launches']}, q "
+                  f"(fused_attention, shard_heads, tensor-core body) "
+                  f"{out['launches']}, q "
                   f"{[s for s, _ in out['shapes']]} row pitch {pitch}; "
                   f"p50 {np.median(out['ms']):.2f} ms per call; "
                   f"probabilities max_abs_err {err:.3e}; final hidden "
@@ -1108,9 +1254,9 @@ def phase_tp(model, cfg, tok, d, gen, eval_inputs):
                   f"{gaps[torch.float32][-1]:.3e}; set-up "
                   f"{out['setup_s']:.2f} s, run {out['run_s']:.2f} s")
             want = cfg.num_hidden_layers
-            if out["launches"] != (want, want):
+            if out["launches"] != (want, want, want):
                 faults.append(f"rank {r}: launches {out['launches']}, "
-                              f"expected {(want, want)}")
+                              f"expected {(want, want, want)}")
             if heads != {cfg.num_attention_heads // model_parallel} or \
                     pitch != {3 * cfg.hidden_size // model_parallel}:
                 faults.append(f"rank {r}: kernel saw {out['shapes']}")
@@ -1152,6 +1298,8 @@ def phase_multiprocess_eval(cfg, run_cfg, tok, path, rows, single,
               f"{out['launches']}; stage stats {_stats_json(st)}")
         _expect(f"eval rank {r}, attention", out["launches"][0],
                 cfg.num_hidden_layers * g * n_cap_batches)
+        _expect(f"eval rank {r}, attention on the tensor-core body",
+                out["launches"][3], out["launches"][0])
         _expect(f"eval rank {r}, matmul_bn_act", out["launches"][1],
                 MBA_PER_ENCODE * g)
         _expect(f"eval rank {r}, fused_stem_pool", out["launches"][2], g)
@@ -1185,6 +1333,75 @@ def phase_multiprocess_eval(cfg, run_cfg, tok, path, rows, single,
         raise AssertionError(f"R@K {got} is not the merged matrix's {want}")
 
 
+@contextlib.contextmanager
+def _attention_body(body: str):
+    """The attention kernel forced to ``body``: for phase 12's measurement
+    only; nothing else runs forced."""
+    real = fa._launch
+    fa._launch = functools.partial(real, body=body)
+    try:
+        yield
+    finally:
+        fa._launch = real
+
+
+def phase_bodies(model, cfg, tok, run_cfg, path, rows, single):
+    """Phase 12: the tc and v2 bodies end to end, in turns."""
+    rng = np.random.default_rng(12)
+    caps = _captions(rng, 32)
+    for nc in (1, 16):
+        sc = RetrievalScorer(model, cfg, tok, n_clips=nc, device="cuda",
+                             compute_dtype=torch.bfloat16, num_frm=2,
+                             max_img_size=448, max_txt_len=20,
+                             max_captions=32)
+        feats = sc.encode_frames(rng.integers(0, 256, (nc * 2, 240, 320, 3),
+                                              np.uint8))
+        ms = {"tc": [], "v2": []}
+        windows = []
+        # ABBA BAAB: a drift through the windows falls on both bodies alike
+        for body in ("tc", "v2", "v2", "tc", "v2", "tc", "tc", "v2"):
+            with _attention_body(body):
+                sc.score(None, caps, features=feats)          # warm
+                win = []
+                for _ in range(2 * REPEATS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sc.score(None, caps, features=feats)      # ends on host
+                    win.append((time.perf_counter() - t0) * 1e3)
+            ms[body] += win
+            windows.append(f"{body} {np.median(win):.2f}")
+        print(f"bodies end to end, {nc} clip(s) x 32 captions, scoring call "
+              f"({8 * REPEATS} calls each, in turns): p50 tc "
+              f"{np.median(ms['tc']):.2f} ms, v2 {np.median(ms['v2']):.2f} "
+              f"ms; window p50s {', '.join(windows)} ms")
+    n_cap_batches = -(-EVAL_CAPTIONS // run_cfg.inference_batch_size)
+    for body in ("tc", "v2", "v2", "tc"):
+        ds = _eval_dataset(rows, tok, path, run_cfg)
+        stats = {}
+        _reset_counts()
+        with _attention_body(body):
+            t0 = time.perf_counter()
+            m = inference_retrieval(run_cfg, cfg, model, ds, torch.bfloat16,
+                                    stats)
+            wall = time.perf_counter() - t0
+        tc_launches = _counts()[3]
+        _expect(f"eval, body {body}, tensor-core launches", tc_launches,
+                cfg.num_hidden_layers * stats["n_groups"] * n_cap_batches
+                if body == "tc" else 0)
+        err = float(np.abs(m["score_matrix"] - single).max())
+        print(f"bodies end to end, eval, body {body}: wall {wall:.3f} s, "
+              f"dispatch_s + fetch_s "
+              f"{stats['dispatch_s'] + stats['fetch_s']:.3f} s; matrix vs "
+              f"phase 7's max_abs_diff {err:.3e}; stage stats "
+              + _stats_json(stats))
+        if body == "tc" and not np.array_equal(m["score_matrix"], single):
+            raise AssertionError(f"tc eval matrix differs from phase 7's by "
+                                 f"{err}")
+        if err > PROB_ATOL:
+            raise AssertionError(f"v2 eval matrix differs from phase 7's by "
+                                 f"{err} > {PROB_ATOL}")
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1212,28 +1429,39 @@ def main() -> None:
             model, model_cfg, tok, d, gen, (run_cfg, tok, path, rows))
         phase_multiprocess_eval(model_cfg, run_cfg, tok, path, rows, matrix,
                                 wall, eval_outs)
+        phase_bodies(model, model_cfg, tok, run_cfg, path, rows, matrix)
 
-    def record(name, source, replaces, n, err, t):
-        k_ms, p_ms, lib_ms, (b_ms, b_by) = t
+    def record(name, source, replaces, n, err, t, design):
         return {"name": name, "route": "cuda",
                 "source": f"clipbert_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
-                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms}
+                **t, "design": design}
 
+    tc = ("body tc: QK^T and PV on mma.sync m16n8k16 (bf16 in, fp32 "
+          "accumulate), exact full-row fp32 softmax in registers, P packed "
+          "into the PV A fragments, K/V staged as bf16 by cp.async; one "
+          "block per (batch item, head), one warp per 16 query rows "
+          "(earlier_ms: body v2, fp32 CUDA cores, kept for fp32, S > 128 "
+          "and dh % 16 != 0)")
     print(json.dumps({"kernels": [
         record("fused_attention", "fused_attention.cu",
                "clipbert_tpu/ops/pallas_attention.py:73", launches[0],
-               attn_err, attn_times[(512, 69, 12, 64)]),
+               attn_err, attn_times[(512, 69, 12, 64)], tc),
         record("matmul_bn_act", "matmul_bn_act.cu",
                "clipbert_tpu/ops/pallas_kernels.py:65", launches[1], mba_err,
-               mba_times[(FRAMES * 112 * 112, 64, 256, True)]),
+               mba_times[(FRAMES * 112 * 112, 64, 256, True)],
+               "128x128 tiles on mma.sync m16n8k16 (bf16 in, fp32 "
+               "accumulate), K slices through shared memory with a register "
+               "prefetch, BN scale/bias, residual and ReLU on the "
+               "accumulators"),
         record("fused_stem_pool", "fused_stem_pool.cu",
                "clipbert_tpu/ops/pallas_stem.py:196", launches[2], stem_err,
-               stem_time),
+               stem_time,
+               "direct 7x7/s2 conv + bias + ReLU + 3x3/s2 max pool, the "
+               "conv tile and the pool in shared memory, fp32 CUDA cores"),
         record("fused_attention_shard_heads", "fused_attention.cu",
                "clipbert_tpu/ops/pallas_attention.py:132", tp_launches,
-               shard_err, shard_time)]}))
+               shard_err, shard_time, tc + " on a rank's heads")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

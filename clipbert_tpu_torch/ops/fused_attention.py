@@ -1,12 +1,19 @@
 """Fused multi-head attention core: the CUDA kernel's wrapper, its plain
-PyTorch version and its launch counter.
+PyTorch version and its launch counters.
 
 Port of clipbert_tpu/ops/pallas_attention.py::fused_attention:
 ``softmax(q k^T * scale + key_bias[b, key]) v`` with an exact full-row fp32
 softmax, probabilities cast to v's dtype before PV, result in q's dtype.
-The kernel (``csrc/fused_attention.cu``) keeps the score tile in shared
-memory; the unfused form materializes a (B, H, S, S) fp32 score tensor in
-device memory.
+The kernel (``csrc/fused_attention.cu``) keeps the scores on chip; the
+unfused form materializes a (B, H, S, S) fp32 score tensor in device
+memory.
+
+The source has two hand-written bodies, and :func:`_plan` chooses one by
+dtype and shape: ``"tc"`` (both products on the tensor cores, the softmax
+in registers) for bf16 with dh a multiple of 16 and S <= ``TC_MAX_SEQ``,
+which is the whole scoring path; ``"v2"`` (the fp32 CUDA-core body) for
+fp32, longer sequences and other head widths. ``TC_LAUNCHES`` counts the
+tensor-core body's launches.
 
 Routing: a CPU tensor takes :func:`fused_attention_reference`; a CUDA
 tensor launches the kernel or raises. Nothing falls back.
@@ -16,18 +23,84 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 # Kernel launches since the process started (or since a caller reset it).
-# Incremented only where the CUDA kernel is launched; SHARD_HEADS_LAUNCHES
-# counts those made through fused_attention_shard_heads (in LAUNCHES too).
+# Incremented only where the CUDA kernel is launched; TC_LAUNCHES counts
+# those of the tensor-core body and SHARD_HEADS_LAUNCHES those made through
+# fused_attention_shard_heads (both in LAUNCHES too).
 LAUNCHES = 0
+TC_LAUNCHES = 0
 SHARD_HEADS_LAUNCHES = 0
 
 MAX_SEQ = 640
 MAX_HEAD_DIM = 128
+TC_MAX_SEQ = 128        # csrc/fused_attention.cu kTcMaxSeq: S in registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BODY_CODES = {"v2": 0, "tc": 1}
+_PLAN_MISMATCH = -1     # csrc/fused_attention.cu kPlanMismatch
+# the v2 body's fixed shape (csrc/fused_attention.cu kWarps, kScoreBytes,
+# kSmemBytes) and its rows-per-warp instantiations
+_V2_WARPS = 8
+_V2_SCORE_BYTES = 96 * 1024
+_V2_SMEM_BYTES = 200 * 1024
+_V2_ROWS = (1, 2, 4, 9, 16)
+
+
+class Plan(NamedTuple):
+    """One launch: the body, its grid (blocks), warps per block, dynamic
+    shared-memory bytes per block, and whether q/k/v are staged 16 bytes at
+    a time (cp.async in the tensor-core body) or element by element."""
+    body: str
+    grid: int
+    warps: int
+    smem_bytes: int
+    vec: bool
+
+
+def _plan(B: int, S: int, H: int, dh: int, dtype: torch.dtype,
+          aligned: bool, body: Optional[str] = None) -> Plan:
+    """The launch the C entry point makes for these operands (it derives
+    the same plan and refuses a different one). ``body`` forces a body, for
+    timing one against the other; nothing on the main path passes it."""
+    tc_ok = dtype == torch.bfloat16 and dh % 16 == 0 and S <= TC_MAX_SEQ
+    if body is None:
+        body = "tc" if tc_ok else "v2"
+    elif body not in _BODY_CODES or (body == "tc" and not tc_ok):
+        raise ValueError(f"no {body!r} body for {dtype} at S={S}, dh={dh}")
+    if body == "tc":
+        # one block per (batch item, head), one warp per 16 query rows, K
+        # and V as bf16 rows of dh + 8 elements, padded to 16 * warps keys
+        warps = -(-S // 16)
+        return Plan("tc", B * H, warps, 2 * 16 * warps * (dh + 8) * 2,
+                    aligned)
+    # v2: R query rows per warp (the whole sequence in one tile where its
+    # fp32 score rows fit their budget), then the largest key chunk of fp32
+    # K/V rows (dh + 4 floats) beside the tile's q and score rows
+    sp = (S + 3) & ~3
+    rows = 1
+    for r in _V2_ROWS:
+        if _V2_WARPS * r * sp * 4 > _V2_SCORE_BYTES:
+            break
+        rows = r
+        if _V2_WARPS * r >= S:
+            break
+    q_tile, ld = _V2_WARPS * rows, dh + 4
+    fixed = 4 * (q_tile * dh + q_tile * sp)
+    k_chunk = (_V2_SMEM_BYTES - fixed) // (4 * ld)
+    k_chunk = S if k_chunk >= S else k_chunk & ~3
+    return Plan("v2", B * H * -(-S // q_tile), _V2_WARPS,
+                fixed + 4 * k_chunk * ld, aligned)
+
+
+def _aligned16(*ts: torch.Tensor) -> bool:
+    """Every row of every tensor starts on a 16-byte boundary: the base
+    pointer and the batch, sequence and head strides in bytes."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st * t.element_size() % 16 == 0
+                       for st in t.stride()[:3]) for t in ts)
 
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -119,19 +192,30 @@ def fused_attention_shard_heads(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+# clipbert_fused_attention's parameters (csrc/fused_attention.cu): q, k, v,
+# key_bias, out; dtype, body, B, S, H, dh; the 9 strides; scale; the plan's
+# blocks, threads, shared-memory bytes and vec; the stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_longlong]
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
 @functools.cache
 def _kernel():
     from clipbert_tpu_torch.ops import _build
     fn = _build.load_library("fused_attention").clipbert_fused_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, key_bias, scale: float) -> torch.Tensor:
-    global LAUNCHES
+def _launch(q, k, v, key_bias, scale: float,
+            body: Optional[str] = None) -> torch.Tensor:
+    """Launch the kernel on CUDA operands that passed :func:`_check`;
+    ``body`` is :func:`_plan`'s, for timing the bodies in turns."""
+    global LAUNCHES, TC_LAUNCHES
     B, S, H, dh = q.shape
+    plan = _plan(B, S, H, dh, q.dtype, _aligned16(q, k, v), body)
     bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -139,9 +223,16 @@ def _launch(q, k, v, key_bias, scale: float) -> torch.Tensor:
     with torch.cuda.device(q.device):
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        bias.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-                       B, S, H, dh, *strides, float(scale), stream)
+                       _BODY_CODES[plan.body], B, S, H, dh, *strides,
+                       float(scale), plan.grid, 32 * plan.warps,
+                       plan.smem_bytes, int(plan.vec), stream)
+    if rc == _PLAN_MISMATCH:
+        raise RuntimeError(f"fused_attention: the kernel derives another "
+                           f"launch than {plan}")
     if rc != 0:
         raise RuntimeError(f"fused_attention kernel launch failed: CUDA "
                            f"error {rc}")
     LAUNCHES += 1
+    if plan.body == "tc":
+        TC_LAUNCHES += 1
     return out
