@@ -9,7 +9,8 @@ Phases; any failure raises and the script exits non-zero:
  2. build: compiles the three csrc/*.cu libraries with nvcc, one process
     per source, all started together (timed), and prints each kernel's
     ptxas registers and spills; every instantiation of the attention
-    kernel's tensor-core body must spill nothing.
+    kernel's tensor-core body and of matmul_bn_act's wgmma body must spill
+    nothing.
  3. kernel vs plain, fused attention: the kernel against its plain PyTorch
     version at the serving, eval, ragged, tensor-core edge and longest
     shapes, fp32 and bf16, contiguous operands, strided views of one merged
@@ -22,8 +23,17 @@ Phases; any failure raises and the script exits non-zero:
     the replay of a CUDA graph of its calls (device time: at the small
     shapes a call's host work outlasts its device work).
  4. kernel vs plain, matmul_bn_act: every distinct 1x1 conv of ResNet-50 at
-    32 frames of 448^2 plus ragged shapes, fp32 and bf16; timed at the
-    res2 conv3 and a res4 conv1 shape beside addmm + residual + ReLU.
+    32 frames of 448^2 plus ragged, tail and unaligned cases, fp32 and
+    bf16, each case printing the body that ran (ops/matmul_bn_act.py::
+    _plan: the wgmma body "wg" for bf16 operands TMA can describe, which is
+    every R50 shape, else the mma.sync body "mma") and checking the
+    counters agree; every wg tile width at a ragged and a strided case;
+    the host time of a call on each body. At each of the 16 R50 shapes the
+    wg body, the mma body (forced), the plain version and the library
+    (addmm, or cuDNN's conv with its bias where the conv is strided, then
+    the residual add and ReLU the shape has) are timed in turns as CUDA
+    graph replays, then wg's three tile widths in turns; then the sums over
+    one encode's 36 launches (launches x ms) and their bound.
  5. kernel vs plain, fused_stem_pool: 32 x 448^2 and small and odd sizes,
     fp32 and bf16; timed at 32 frames beside cuDNN conv + bias + ReLU +
     max_pool2d.
@@ -32,17 +42,19 @@ Phases; any failure raises and the script exits non-zero:
     16 clips, requests of 1, 5 and 32 captions on seeded uint8 240x320
     frames. Counts from 0: every scoring call must launch attention once
     per encoder layer, on the tensor-core body, every encode 36 fused 1x1
-    convs and one fused stem.
+    convs, all on the wgmma body, and one fused stem.
     Then the CNN's kernel form and cuDNN form in turns; their grid features
-    on the same frames must agree within FEAT_REL, and the kernel form with
-    a planted wiring fault must not. Then one request through the plain
+    on the same frames must agree within FEAT_REL, as must the kernel
+    form's with matmul_bn_act's two bodies, and the kernel form with a
+    planted wiring fault must not. Then one request through the plain
     attention path.
  7. the eval path at full width: tasks.run_video_retrieval.
     inference_retrieval with the configs/msrvtt_ret_base_resnet50.json
     settings (16 clips x 2 frames at 448^2, text length 20, bf16, folded
     BN) on a synthetic store of 16 seeded 240x320 JPEG-sequence videos and
-    72 captions. Counts from 0: 36 + 1 CNN launches per encode, 12
-    attention launches per prob dispatch, all on the tensor-core body.
+    72 captions. Counts from 0: 36 + 1 CNN launches per encode, the 36
+    on the wgmma body, 12 attention launches per prob dispatch, all on the
+    tensor-core body.
     Then the same eval in the cuDNN form; the score matrices must agree
     within PROB_ATOL, and the first video group's grid features within
     FEAT_REL, as in phase 6.
@@ -64,17 +76,24 @@ Phases; any failure raises and the script exits non-zero:
 11. multi-process eval: 2 processes on this card over gloo (phase 10's
     pair of ranks, once their scoring is done, which saves a spawn) run
     inference_retrieval on phase 7's store; every video is scored once,
-    the merged matrix is bit-identical to phase 7's (the same group and
-    minibatch shapes), and its R@K is the merged matrix's.
+    every fused 1x1 conv runs the wgmma body, the merged matrix is
+    bit-identical to phase 7's (the same group and minibatch shapes), and
+    its R@K is the merged matrix's.
 12. the attention bodies end to end, in turns: the tensor-core body
     against the v2 body (forced for this measurement only) in the scoring
     call of a 1-clip and a 16-clip request with 32 captions (windows tc,
     v2, v2, tc, v2, tc, tc, v2), and in phase 7's eval (tc, v2, v2, tc);
     the tc eval's matrix must be bit-identical to phase 7's and the v2
     eval's within PROB_ATOL of it.
+13. matmul_bn_act's bodies end to end, in turns: the wgmma body against
+    the mma.sync body (forced for this measurement only) in the 16-clip
+    encode (windows wg, mma, mma, wg, mma, wg, wg, mma), the bench unit at
+    8 x 16 and 128 x 1 clips, and phase 7's eval (wg, mma, mma, wg); the
+    wg eval's matrix must be bit-identical to phase 7's and the mma eval's
+    within PROB_ATOL of it.
  9. the last two lines: the kernels' JSON record (each kernel's design, and
-    for the attention kernels the v2 body's time beside the tc body's as
-    ``earlier_ms``), then {"ok": true, "device": {...}}.
+    the earlier body's time beside it as ``earlier_ms``: attention's v2,
+    matmul_bn_act's mma), then {"ok": true, "device": {...}}.
 
 The ranks of phases 10 and 11 share the one card, so their process group
 runs over gloo, passed explicitly (NCCL refuses two ranks on one device):
@@ -122,6 +141,9 @@ from clipbert_tpu_torch.utils.distributed import spawn_ranks
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LIBRARIES = ("fused_attention", "matmul_bn_act", "fused_stem_pool")
+# the register-resident bodies, every instantiation of which must not spill:
+# attention's tensor-core body and matmul_bn_act's wgmma body (one per BN)
+NO_SPILL = ("fused_attention_tc_kernel", "matmul_bn_act_wg_kernel")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -257,22 +279,24 @@ def phase_build() -> float:
     dt = time.perf_counter() - t0
     print(f"build: {len(paths)} libraries in {dt:.2f} s (one nvcc each, "
           "in parallel)")
+    reports = {name: _ptxas_report(path.with_suffix(".log").read_text())
+               for name, path in paths.items()}
     spilled = []
     for name, path in paths.items():
         print(f"  {os.path.relpath(path, ROOT)}")
-        report = _ptxas_report(path.with_suffix(".log").read_text())
-        for kern, (regs, st, ld) in report.items():
+        for kern, (regs, st, ld) in reports[name].items():
             print(f"    ptxas: {kern}: {regs} registers, spill stores {st} "
                   f"B, spill loads {ld} B")
-            if "fused_attention_tc_kernel" in kern and (st or ld):
+            if any(body in kern for body in NO_SPILL) and (st or ld):
                 spilled.append(kern)
-    n_tc = sum("fused_attention_tc_kernel" in k for k in
-               _ptxas_report(paths["fused_attention"].with_suffix(".log")
-                             .read_text()))
-    print(f"build: {n_tc} instantiations of the attention kernel's "
-          f"tensor-core body, {len(spilled)} spilling")
-    if spilled or not n_tc:
-        raise AssertionError(f"the tensor-core body spills in {spilled}")
+    counts = {body: sum(body in k for r in reports.values() for k in r)
+              for body in NO_SPILL}
+    print(f"build: {counts[NO_SPILL[0]]} instantiations of the attention "
+          f"kernel's tensor-core body, {counts[NO_SPILL[1]]} of "
+          f"matmul_bn_act's wgmma body, {len(spilled)} spilling")
+    if spilled or counts[NO_SPILL[0]] == 0 or \
+            counts[NO_SPILL[1]] != len(mba.WG_TILE_NS):
+        raise AssertionError(f"instantiations {counts}; spilling: {spilled}")
     return dt
 
 
@@ -441,21 +465,25 @@ def phase_attention(gen):
     return bf16_err, times
 
 
-def _r50_1x1_shapes(frames: int, img: int):
-    """Every distinct (H, W, K, N, residual, stride) of ResNet-50's 1x1
-    convs (stride on the 1x1 reduce conv, stride_in_1x1) for ``frames``
-    frames of ``img``^2."""
-    shapes, cin, hw = [], 64, img // 4
+def _r50_1x1_launches(frames: int, img: int):
+    """{(B, H, W, K, N, residual, stride, relu): launches per encode} of
+    ResNet-50's fused 1x1 convs (stride on the 1x1 reduce conv,
+    stride_in_1x1) for ``frames`` frames of ``img``^2, in the order they
+    first run: conv1 (ReLU), the shortcut (no ReLU) and conv3 (residual and
+    ReLU) of each stage's first bottleneck, conv1 of the others."""
+    launches, cin, hw = {}, 64, img // 4
     for si, (n, cmid, cout) in enumerate(resnet.R50_STAGES):
         s = 1 if si == 0 else 2
         out_hw = hw // s
-        shapes += [(hw, cin, cmid, False, s), (hw, cin, cout, False, s),
-                   (out_hw, cmid, cout, True, 1)]
-        if n > 1:
-            shapes.append((out_hw, cout, cmid, False, 1))
+        for h, K, N, res, stride, relu, count in (
+                (hw, cin, cmid, False, s, True, 1),
+                (hw, cin, cout, False, s, False, 1),
+                (out_hw, cmid, cout, True, 1, True, n),
+                (out_hw, cout, cmid, False, 1, True, n - 1)):
+            key = (frames, h, h, K, N, res, stride, relu)
+            launches[key] = launches.get(key, 0) + count
         cin, hw = cout, out_hw
-    return [(frames, h, h, K, N, res, s) for h, K, N, res, s in
-            dict.fromkeys(shapes)]
+    return {k: n for k, n in launches.items() if n}
 
 
 def _check_close(name, out, ref, mag, dtype):
@@ -475,67 +503,202 @@ def _check_close(name, out, ref, mag, dtype):
     return err
 
 
+# matmul_bn_act's cases beyond the 16 R50 shapes, (B, H, W, K, N, residual,
+# stride, relu, layout): R off the 128-row tile, K = 8, 72 (a ragged last
+# stage) and 2048, N = 64, 96, 136 (a ragged last sub-tile) and 2048, a
+# strided conv with a residual and 18 whole output rows a tile; then the
+# shapes the wgmma body does not take, on the mma body: K not a multiple of
+# 8, a stride that does not divide H, an input 2 bytes off 16-byte
+# alignment.
+MBA_CASES = [(1, 100, 1, 64, 96, True, 1, True, "contiguous"),
+             (1, 3, 1, 8, 8, False, 1, True, "contiguous"),
+             (3, 17, 19, 72, 64, True, 1, True, "contiguous"),
+             (1, 37, 5, 2048, 2048, False, 1, False, "contiguous"),
+             (2, 10, 14, 64, 136, True, 2, True, "contiguous"),
+             (1, 16, 16, 12, 64, False, 1, True, "contiguous"),
+             (1, 9, 9, 64, 64, False, 2, True, "contiguous"),
+             (2, 8, 8, 64, 64, True, 1, True, "unaligned")]
+
+
+def _mba_inputs(B, H, W, K, N, res, stride, dtype, gen, layout="contiguous"):
+    if layout == "unaligned":        # a view one element into its storage
+        x = torch.randn(B * H * W * K + 1, device="cuda", generator=gen
+                        ).to(dtype)[1:].view(B, H, W, K)
+    else:
+        x = torch.randn(B, H, W, K, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(N, K, 1, 1, device="cuda", generator=gen) * K ** -0.5
+    sc = torch.rand(N, device="cuda", generator=gen) + 0.5
+    b = torch.randn(N, device="cuda", generator=gen)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    r = (torch.randn(B, Ho, Wo, N, device="cuda", generator=gen).to(dtype)
+         if res else None)
+    return x, w, sc, b, r
+
+
+def _mba_check(B, H, W, K, N, res, stride, relu, dtype, gen,
+               layout="contiguous", tile_n=None):
+    """One case of the kernel against its plain version; returns (max abs
+    error, body). The counters must show the body _plan chose; ``tile_n``
+    forces a wg tile width."""
+    x, w, sc, b, r = _mba_inputs(B, H, W, K, N, res, stride, dtype, gen,
+                                 layout)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    xs = x[:, ::stride, ::stride].reshape(-1, K)
+    r2 = None if r is None else r.reshape(-1, N)
+    w_nk = w.reshape(N, K)
+    ref = mba.matmul_bn_act_reference(xs, w_nk.t(), sc, b, r2, relu)
+    plan = mba._plan(B * Ho * Wo, K, N, stride, H, W, Wo, dtype,
+                     mba._aligned16(x, r), mba._n_sms(0), tile_n=tile_n)
+    before = (mba.LAUNCHES, mba.WG_LAUNCHES)
+    if tile_n is None:
+        out = mba.conv1x1_bn_act(x, w, sc, b, stride, r, relu)
+    else:
+        out = mba._launch(x, w_nk, sc, b, r, relu, (B, H, W), stride,
+                          tile_n=tile_n)
+    out = out.reshape(-1, N)
+    torch.cuda.synchronize()
+    ran = (mba.LAUNCHES - before[0], mba.WG_LAUNCHES - before[1])
+    mag = (xs.float().abs() @ w_nk.to(dtype).float().abs().t()) * sc \
+        + b.abs()
+    if r2 is not None:
+        mag = mag + r2.float().abs()
+    what = (f"matmul_bn_act R={B * Ho * Wo} K={K} N={N} residual={res} "
+            f"stride={stride} relu={relu} {layout}: body {plan.body}"
+            + (f" BN {plan.tile_n}, {plan.stages} stages, {plan.smem_bytes} "
+               f"B shared, {plan.grid} blocks"
+               + (" (forced)" if tile_n else "")
+               if plan.body == "wg" else ""))
+    err = _check_close(what, out, ref, mag, dtype)
+    if ran != (1, int(plan.body == "wg")):
+        raise AssertionError(f"{what}: counters moved {ran}, plan {plan}")
+    return err, plan.body
+
+
+def _mba_library(x, w, b, r, relu, stride):
+    """One PyTorch call for the conv (addmm on the pixels, or cuDNN's
+    strided conv with its bias), then the residual add and ReLU the shape
+    has: the yardstick, never called by the port."""
+    N, K = w.shape[:2]
+    b16 = b.to(x.dtype)
+    if stride == 1:
+        x2, w2 = x.reshape(-1, K), w.reshape(N, K).t()
+        r2 = None if r is None else r.reshape(-1, N)
+
+        def conv():
+            return torch.addmm(b16, x2, w2)
+    else:
+        xc, r2 = x.permute(0, 3, 1, 2), None if r is None else \
+            r.permute(0, 3, 1, 2)
+        wc = w.contiguous(memory_format=torch.channels_last)
+
+        def conv():
+            return F.conv2d(xc, wc, b16, stride)
+
+    def library():
+        y = conv()
+        if r2 is not None:
+            y = y + r2
+        return torch.relu(y) if relu else y
+    return library
+
+
 def phase_matmul_bn_act(gen):
-    shapes = _r50_1x1_shapes(FRAMES, 448) + [(1, 100, 1, 64, 96, True, 1),
-                                              (1, 3, 1, 8, 8, False, 1)]
+    launches = _r50_1x1_launches(FRAMES, 448)
+    if sum(launches.values()) != MBA_PER_ENCODE:
+        raise AssertionError(f"{sum(launches.values())} 1x1 convs per "
+                             f"encode, expected {MBA_PER_ENCODE}")
     bf16_err = 0.0
-    for B, H, W, K, N, res, stride in shapes:
+    cases = [s + ("contiguous",) for s in launches] + MBA_CASES
+    for B, H, W, K, N, res, stride, relu, layout in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(B, H, W, K, device="cuda", generator=gen).to(dtype)
-            w = torch.randn(N, K, 1, 1, device="cuda", generator=gen) * K ** -0.5
-            sc = torch.rand(N, device="cuda", generator=gen) + 0.5
-            b = torch.randn(N, device="cuda", generator=gen)
-            Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-            r = (torch.randn(B, Ho, Wo, N, device="cuda", generator=gen)
-                 .to(dtype) if res else None)
-            xs = x[:, ::stride, ::stride].reshape(-1, K)
-            r2 = None if r is None else r.reshape(-1, N)
-            ref = mba.matmul_bn_act_reference(xs, w.reshape(N, K).t(), sc, b,
-                                              r2)
-            out = mba.conv1x1_bn_act(x, w, sc, b, stride, r).reshape(-1, N)
-            torch.cuda.synchronize()
-            mag = (xs.float().abs() @ w.reshape(N, K).to(dtype).float().abs()
-                   .t()) * sc + b.abs()
-            if r2 is not None:
-                mag = mag + r2.float().abs()
-            err = _check_close(f"matmul_bn_act R={B * Ho * Wo} K={K} N={N} "
-                               f"residual={res} stride={stride}", out, ref,
-                               mag, dtype)
+            err, body = _mba_check(B, H, W, K, N, res, stride, relu, dtype,
+                                   gen, layout)
             if dtype == torch.bfloat16:
                 bf16_err = max(bf16_err, err)
-            del x, w, r, xs, r2, ref, out, mag
-    times = {}
-    for R, K, N, res in ((FRAMES * 112 * 112, 64, 256, True),
-                         (FRAMES * 28 * 28, 1024, 256, False)):
-        dt = torch.bfloat16
-        x = torch.randn(R, K, device="cuda", generator=gen).to(dt)
-        w = (torch.randn(K, N, device="cuda", generator=gen)
-             * K ** -0.5).to(dt)
-        b = torch.randn(N, device="cuda", generator=gen)
-        r = torch.randn(R, N, device="cuda", generator=gen).to(dt) if res \
-            else None
-        b16 = b.to(dt)
+                if (B, H, W, K, N, res, stride, relu) in launches and \
+                        body != "wg":
+                    raise AssertionError(f"R50 shape {(H, K, N)} ran body "
+                                         f"{body}, not wg")
+    # every wg tile width at a ragged shape and a strided one
+    for tile_n in mba.WG_TILE_NS:
+        for case in ((3, 17, 19, 72, 136, True, 1, True),
+                     (2, 10, 14, 64, 136, True, 2, False)):
+            err, _ = _mba_check(*case, torch.bfloat16, gen, tile_n=tile_n)
+            bf16_err = max(bf16_err, err)
 
-        def library():
-            y = torch.addmm(b16, x, w)
-            return torch.relu(y + r if r is not None else y)
+    # host work per call: the wg body encodes its tensor maps on the host
+    x, w, sc, b, r = _mba_inputs(2, 8, 8, 64, 64, True, 1, torch.bfloat16,
+                                 gen)
+    w_nk = w.reshape(64, 64).to(torch.bfloat16)
+    host_us = {}
+    for body in ("mma", "wg", "wg", "mma"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            mba._launch(x, w_nk, None, b, r, True, (2, 8, 8), 1, body=body)
+        host_us.setdefault(body, []).append(
+            (time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    print("host time per matmul_bn_act call at a tiny shape (wrapper, plan, "
+          "ctypes, launch; the wg body also encodes its tensor maps): wg "
+          + " / ".join(f"{t:.1f}" for t in host_us["wg"]) + " us, mma "
+          + " / ".join(f"{t:.1f}" for t in host_us["mma"]) + " us")
 
+    times, sums = {}, {"kernel": 0.0, "earlier": 0.0, "library": 0.0,
+                       "bound": 0.0}
+    for shape, n_launch in launches.items():
+        B, H, W, K, N, res, stride, relu = shape
+        x, w, _, b, r = _mba_inputs(B, H, W, K, N, res, stride,
+                                    torch.bfloat16, gen)
+        w = w.to(torch.bfloat16)
+        w_nk = w.reshape(N, K)
+        Ho, Wo = H // stride, W // stride
+        R = B * Ho * Wo
+        xs = x[:, ::stride, ::stride].reshape(-1, K)
+        r2 = None if r is None else r.reshape(-1, N)
+        plan = mba._plan(R, K, N, stride, H, W, Wo, torch.bfloat16, True,
+                         mba._n_sms(0))
         ms = _in_turns(
-            lambda: mba.matmul_bn_act(x, w, None, b, r),
-            lambda: mba.matmul_bn_act_reference(x, w, None, b, r), 10,
-            library)
+            lambda: mba.conv1x1_bn_act(x, w, None, b, stride, r, relu),
+            lambda: mba.matmul_bn_act_reference(xs, w_nk.t(), None, b, r2,
+                                                relu), 10,
+            _mba_library(x, w, b, r, relu, stride),
+            lambda: mba._launch(x, w_nk, None, b, r, relu, (B, H, W), stride,
+                                body="mma"), graph=True)
+        # the other wg tile widths, in turns with the planned one
+        others = [t for t in mba.WG_TILE_NS if t != plan.tile_n]
+        var = {t: [] for t in [plan.tile_n] + others}
+        for t in [plan.tile_n] + others + others[::-1] + [plan.tile_n]:
+            var[t].append(_time_ms(
+                lambda: mba._launch(x, w_nk, None, b, r, relu, (B, H, W),
+                                    stride, tile_n=t), 10, graph=True))
         nbytes = (R * K + K * N + R * N * (2 if res else 1)) * 2 + N * 4
         bound = _bound_ms(2 * R * K * N, nbytes)
-        t = times[(R, K, N, res)] = _timing(ms, bound)
-        print(f"time bf16 matmul_bn_act R={R} K={K} N={N} residual={res}: "
-              f"kernel {_windows(ms, 'kernel')} ms "
-              f"({2 * R * K * N / t['ms'] / 1e9:.1f} TFLOP/s), plain "
-              f"{_windows(ms, 'plain')} ms, addmm+residual+relu "
-              f"{t['library_ms']:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]})")
-        del x, w, b, r, b16
-    torch.cuda.empty_cache()
-    return bf16_err, times
+        t = times[shape] = _timing(ms, bound)
+        for k in ("kernel", "earlier", "library"):
+            sums[k] += n_launch * t[f"{k}_ms" if k != "kernel" else "ms"]
+        sums["bound"] += n_launch * bound[0]
+        lib = "addmm" if stride == 1 else "cuDNN conv + bias"
+        lib += (" + residual" if res else "") + (" + ReLU" if relu else "")
+        print(f"time bf16 matmul_bn_act R={R} K={K} N={N} residual={res} "
+              f"stride={stride} relu={relu} (x{n_launch} per encode; device "
+              f"time, CUDA graph of 10 calls): wg BN {plan.tile_n} "
+              f"{_windows(ms, 'kernel')} ms "
+              f"({2 * R * K * N / t['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{bound[0] / t['ms']:.1%} of bound), mma "
+              f"{_windows(ms, 'earlier')} ms, plain {_windows(ms, 'plain')} "
+              f"ms, {lib} {_windows(ms, 'library')} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); wg tile widths in turns: "
+              + ", ".join(f"BN {tn} " + " / ".join(f"{v:.4f}" for v in vs)
+                          for tn, vs in var.items()) + " ms")
+        del x, w, w_nk, b, r, xs, r2
+        torch.cuda.empty_cache()
+    print(f"matmul_bn_act, one encode's {MBA_PER_ENCODE} launches "
+          f"(launches x ms, summed over the 16 shapes): wg "
+          f"{sums['kernel']:.4f} ms, mma {sums['earlier']:.4f} ms, library "
+          f"{sums['library']:.4f} ms, bound {sums['bound']:.4f} ms "
+          f"(wg at {sums['bound'] / sums['kernel']:.1%} of it)")
+    return bf16_err, times, sums
 
 
 def _stem_inputs(B, H, W, dtype, gen):
@@ -626,12 +789,24 @@ def _check_cnn_forms(what, model, encode, score):
     gives the probabilities, to show what PROB_ATOL alone would see."""
     ref = encode("cudnn")
     ref_probs = score(ref)
-    gap = _rel_gap(encode("kernels"), ref)
+    feats = encode("kernels")
+    gap = _rel_gap(feats, ref)
+    before = (mba.LAUNCHES, mba.WG_LAUNCHES)
+    with _mba_body("mma"):
+        body_gap = _rel_gap(encode("kernels"), feats)
+    ran = (mba.LAUNCHES - before[0], mba.WG_LAUNCHES - before[1])
+    if ran[0] == 0 or ran[1] != 0:
+        raise AssertionError(f"{what}: the forced mma.sync encode launched "
+                             f"(all, wgmma) {ran}")
     print(f"{what}: grid features, kernel form vs cuDNN form: relative gap "
-          f"{gap:.3e} (bound {FEAT_REL})")
+          f"{gap:.3e}; matmul_bn_act's wgmma body vs its mma.sync body "
+          f"(forced): {body_gap:.3e} (bound {FEAT_REL})")
     if not gap <= FEAT_REL:
         raise AssertionError(f"{what}: the CNN's two forms' grid features "
                              f"differ by {gap} > {FEAT_REL}")
+    if not body_gap <= FEAT_REL:
+        raise AssertionError(f"{what}: matmul_bn_act's two bodies' grid "
+                             f"features differ by {body_gap} > {FEAT_REL}")
     r50 = model.cnn.resnet
     for fault, name, block in (("residual", "res4[2]", r50.res4[2]),
                                ("hw", "res3[1]", r50.res3[1])):
@@ -656,13 +831,14 @@ def _captions(rng, n):
 
 def _reset_counts():
     fa.LAUNCHES = fa.TC_LAUNCHES = fa.SHARD_HEADS_LAUNCHES = 0
-    mba.LAUNCHES = fsp.LAUNCHES = 0
+    mba.LAUNCHES = mba.WG_LAUNCHES = fsp.LAUNCHES = 0
 
 
 def _counts():
     """(attention, matmul_bn_act, fused_stem_pool, attention on the
-    tensor-core body) launches."""
-    return fa.LAUNCHES, mba.LAUNCHES, fsp.LAUNCHES, fa.TC_LAUNCHES
+    tensor-core body, matmul_bn_act on the wgmma body) launches."""
+    return (fa.LAUNCHES, mba.LAUNCHES, fsp.LAUNCHES, fa.TC_LAUNCHES,
+            mba.WG_LAUNCHES)
 
 
 def _expect(what, got, want):
@@ -728,13 +904,15 @@ def phase_slice(model, cfg, tok):
                 _expect("scoring call, attention on the tensor-core body",
                         d[3], cfg.num_hidden_layers)
                 _expect("encode, matmul_bn_act", d[1], MBA_PER_ENCODE)
+                _expect("encode, matmul_bn_act on the wgmma body", d[4],
+                        MBA_PER_ENCODE)
                 _expect("encode, fused_stem_pool", d[2], 1)
     launches = _counts()
     print(f"serving path: {n_calls} requests launched attention "
           f"{launches[0]} ({launches[3]} on the tensor-core body), "
-          f"matmul_bn_act {launches[1]} and fused_stem_pool {launches[2]} "
-          f"times ({cfg.num_hidden_layers}, {MBA_PER_ENCODE} and 1 per "
-          "request)")
+          f"matmul_bn_act {launches[1]} ({launches[4]} on the wgmma body) "
+          f"and fused_stem_pool {launches[2]} times ({cfg.num_hidden_layers}"
+          f", {MBA_PER_ENCODE} and 1 per request)")
     for nc in frames:
         per = ", ".join(f"{n} caption(s) {np.median(lat[nc][n]) * 1e3:.2f} ms"
                         for n in REQUEST_SIZES)
@@ -895,11 +1073,14 @@ def phase_eval(model, model_cfg, tok, cfg, d):
             _expect("eval, attention on the tensor-core body", launches[3],
                     launches[0])
             _expect("eval, matmul_bn_act", launches[1], MBA_PER_ENCODE * g)
+            _expect("eval, matmul_bn_act on the wgmma body", launches[4],
+                    MBA_PER_ENCODE * g)
             _expect("eval, fused_stem_pool", launches[2], g)
             print(f"eval path: {g} video groups x {n_cap_batches} caption "
                   f"minibatches launched attention {launches[0]} "
                   f"({launches[3]} on the tensor-core body), matmul_bn_act "
-                  f"{launches[1]} and fused_stem_pool {launches[2]} times")
+                  f"{launches[1]} ({launches[4]} on the wgmma body) and "
+                  f"fused_stem_pool {launches[2]} times")
         _check_matrix(m["score_matrix"])
         if ds.n_fallbacks:
             raise AssertionError(f"{ds.n_fallbacks} videos did not decode")
@@ -1302,6 +1483,8 @@ def phase_multiprocess_eval(cfg, run_cfg, tok, path, rows, single,
                 out["launches"][3], out["launches"][0])
         _expect(f"eval rank {r}, matmul_bn_act", out["launches"][1],
                 MBA_PER_ENCODE * g)
+        _expect(f"eval rank {r}, matmul_bn_act on the wgmma body",
+                out["launches"][4], MBA_PER_ENCODE * g)
         _expect(f"eval rank {r}, fused_stem_pool", out["launches"][2], g)
         if out["fallbacks"]:
             raise AssertionError(f"rank {r}: {out['fallbacks']} videos did "
@@ -1334,6 +1517,18 @@ def phase_multiprocess_eval(cfg, run_cfg, tok, path, rows, single,
 
 
 @contextlib.contextmanager
+def _mba_body(body: str):
+    """matmul_bn_act forced to ``body``: for the comparisons of the two
+    bodies only; nothing else runs forced."""
+    real = mba._launch
+    mba._launch = functools.partial(real, body=body)
+    try:
+        yield
+    finally:
+        mba._launch = real
+
+
+@contextlib.contextmanager
 def _attention_body(body: str):
     """The attention kernel forced to ``body``: for phase 12's measurement
     only; nothing else runs forced."""
@@ -1343,6 +1538,61 @@ def _attention_body(body: str):
         yield
     finally:
         fa._launch = real
+
+
+def _windows_in_turns(call, force, bodies):
+    """Host ms of ``call()``, synchronised, under ``force(body)`` for each
+    of two bodies, in windows of 2 * REPEATS calls after a warm call, ABBA
+    BAAB: a drift through the windows falls on both bodies alike. Returns
+    ({body: [ms, ...]}, each window's body and p50)."""
+    a, b = bodies
+    ms, windows = {a: [], b: []}, []
+    for body in (a, b, b, a, b, a, a, b):
+        with force(body):
+            call()
+            win = []
+            for _ in range(2 * REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                win.append((time.perf_counter() - t0) * 1e3)
+        ms[body] += win
+        windows.append(f"{body} {np.median(win):.2f}")
+    return ms, ", ".join(windows)
+
+
+def _eval_in_turns(what, force, bodies, counter, per_group, run_cfg, cfg,
+                   model, tok, path, rows, single):
+    """Phase 7's eval under ``force(body)``, in turns (A, B, B, A). Body A,
+    the main path's, makes ``per_group`` launches a video group on
+    ``_counts()[counter]`` and gives phase 7's matrix bit for bit; body B
+    makes none there and stays within PROB_ATOL of it."""
+    a, b = bodies
+    for body in (a, b, b, a):
+        ds = _eval_dataset(rows, tok, path, run_cfg)
+        stats = {}
+        _reset_counts()
+        with force(body):
+            t0 = time.perf_counter()
+            m = inference_retrieval(run_cfg, cfg, model, ds, torch.bfloat16,
+                                    stats)
+            wall = time.perf_counter() - t0
+        _expect(f"{what}, eval, body {body}, body {a} launches",
+                _counts()[counter],
+                per_group * stats["n_groups"] if body == a else 0)
+        err = float(np.abs(m["score_matrix"] - single).max())
+        print(f"{what} end to end, eval, body {body}: wall {wall:.3f} s, "
+              f"dispatch_s + fetch_s "
+              f"{stats['dispatch_s'] + stats['fetch_s']:.3f} s; matrix vs "
+              f"phase 7's max_abs_diff {err:.3e}; stage stats "
+              + _stats_json(stats))
+        if body == a and not np.array_equal(m["score_matrix"], single):
+            raise AssertionError(f"{what}: the {a} eval matrix differs from "
+                                 f"phase 7's by {err}")
+        if err > PROB_ATOL:
+            raise AssertionError(f"{what}: the {body} eval matrix differs "
+                                 f"from phase 7's by {err} > {PROB_ATOL}")
 
 
 def phase_bodies(model, cfg, tok, run_cfg, path, rows, single):
@@ -1356,50 +1606,61 @@ def phase_bodies(model, cfg, tok, run_cfg, path, rows, single):
                              max_captions=32)
         feats = sc.encode_frames(rng.integers(0, 256, (nc * 2, 240, 320, 3),
                                               np.uint8))
-        ms = {"tc": [], "v2": []}
-        windows = []
-        # ABBA BAAB: a drift through the windows falls on both bodies alike
-        for body in ("tc", "v2", "v2", "tc", "v2", "tc", "tc", "v2"):
-            with _attention_body(body):
-                sc.score(None, caps, features=feats)          # warm
-                win = []
-                for _ in range(2 * REPEATS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    sc.score(None, caps, features=feats)      # ends on host
-                    win.append((time.perf_counter() - t0) * 1e3)
-            ms[body] += win
-            windows.append(f"{body} {np.median(win):.2f}")
-        print(f"bodies end to end, {nc} clip(s) x 32 captions, scoring call "
-              f"({8 * REPEATS} calls each, in turns): p50 tc "
+        ms, windows = _windows_in_turns(
+            lambda: sc.score(None, caps, features=feats), _attention_body,
+            ("tc", "v2"))
+        print(f"attention bodies end to end, {nc} clip(s) x 32 captions, "
+              f"scoring call ({8 * REPEATS} calls each, in turns): p50 tc "
               f"{np.median(ms['tc']):.2f} ms, v2 {np.median(ms['v2']):.2f} "
-              f"ms; window p50s {', '.join(windows)} ms")
+              f"ms; window p50s {windows} ms")
     n_cap_batches = -(-EVAL_CAPTIONS // run_cfg.inference_batch_size)
-    for body in ("tc", "v2", "v2", "tc"):
-        ds = _eval_dataset(rows, tok, path, run_cfg)
-        stats = {}
-        _reset_counts()
-        with _attention_body(body):
-            t0 = time.perf_counter()
-            m = inference_retrieval(run_cfg, cfg, model, ds, torch.bfloat16,
-                                    stats)
-            wall = time.perf_counter() - t0
-        tc_launches = _counts()[3]
-        _expect(f"eval, body {body}, tensor-core launches", tc_launches,
-                cfg.num_hidden_layers * stats["n_groups"] * n_cap_batches
-                if body == "tc" else 0)
-        err = float(np.abs(m["score_matrix"] - single).max())
-        print(f"bodies end to end, eval, body {body}: wall {wall:.3f} s, "
-              f"dispatch_s + fetch_s "
-              f"{stats['dispatch_s'] + stats['fetch_s']:.3f} s; matrix vs "
-              f"phase 7's max_abs_diff {err:.3e}; stage stats "
-              + _stats_json(stats))
-        if body == "tc" and not np.array_equal(m["score_matrix"], single):
-            raise AssertionError(f"tc eval matrix differs from phase 7's by "
-                                 f"{err}")
-        if err > PROB_ATOL:
-            raise AssertionError(f"v2 eval matrix differs from phase 7's by "
-                                 f"{err} > {PROB_ATOL}")
+    _eval_in_turns("attention bodies", _attention_body, ("tc", "v2"), 3,
+                   cfg.num_hidden_layers * n_cap_batches, run_cfg, cfg,
+                   model, tok, path, rows, single)
+
+
+def phase_cnn_bodies(model, cfg, tok, run_cfg, path, rows, single):
+    """Phase 13: matmul_bn_act's wgmma body against its mma.sync body
+    (forced) end to end, in turns: the 16-clip encode, the bench unit and
+    the eval."""
+    rng = np.random.default_rng(13)
+    sc = RetrievalScorer(model, cfg, tok, n_clips=16, device="cuda",
+                         compute_dtype=torch.bfloat16, num_frm=2,
+                         max_img_size=448, max_txt_len=20, max_captions=32)
+    frames = rng.integers(0, 256, (32, 240, 320, 3), np.uint8)
+    ms, windows = _windows_in_turns(lambda: sc.encode_frames(frames),
+                                    _mba_body, ("wg", "mma"))
+    print(f"matmul_bn_act bodies end to end, 16-clip encode_frames "
+          f"({8 * REPEATS} calls each, in turns): p50 wg "
+          f"{np.median(ms['wg']):.2f} ms, mma {np.median(ms['mma']):.2f} ms; "
+          f"window p50s {windows} ms")
+    for nc, bv in ((16, 8), (1, 128)):
+        ts = steps.TaskSettings(head_type="retrieval", loss_type="ce",
+                                score_agg_func="lse", train_n_clips=nc)
+        batch = {
+            "text_input_ids": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (bv, 20))).cuda(),
+            "text_input_mask": torch.ones(bv, 20, dtype=torch.int64,
+                                          device="cuda"),
+            "visual_inputs": (torch.from_numpy(rng.standard_normal(
+                (bv, nc * 2, 448, 448, 3), np.float32)) * 0.5).to(
+                "cuda", torch.bfloat16)}
+        rate = {"wg": [], "mma": []}
+        for body in ("wg", "mma", "mma", "wg"):
+            with _mba_body(body):
+                t = _time_ms(lambda: steps.mil_forward(
+                    model, cfg, ts, batch, torch.bfloat16, use_kernels=True),
+                    2)
+            rate[body].append(bv * nc / (t / 1e3))
+        print(f"matmul_bn_act bodies end to end, bench unit {bv} videos x "
+              f"{nc} clip(s), kernel form: wg "
+              + " / ".join(f"{r:.1f}" for r in rate["wg"]) + " clips/s, mma "
+              + " / ".join(f"{r:.1f}" for r in rate["mma"]) + " clips/s")
+        del batch
+        torch.cuda.empty_cache()
+    _eval_in_turns("matmul_bn_act bodies", _mba_body, ("wg", "mma"), 4,
+                   MBA_PER_ENCODE, run_cfg, cfg, model, tok, path, rows,
+                   single)
 
 
 def main() -> None:
@@ -1407,7 +1668,7 @@ def main() -> None:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     attn_err, attn_times = phase_attention(gen)
-    mba_err, mba_times = phase_matmul_bn_act(gen)
+    mba_err, mba_times, _ = phase_matmul_bn_act(gen)
     stem_err, stem_time = phase_stem(gen)
 
     run_cfg = load_run_config(
@@ -1430,6 +1691,7 @@ def main() -> None:
         phase_multiprocess_eval(model_cfg, run_cfg, tok, path, rows, matrix,
                                 wall, eval_outs)
         phase_bodies(model, model_cfg, tok, run_cfg, path, rows, matrix)
+        phase_cnn_bodies(model, model_cfg, tok, run_cfg, path, rows, matrix)
 
     def record(name, source, replaces, n, err, t, design):
         return {"name": name, "route": "cuda",
@@ -1449,11 +1711,16 @@ def main() -> None:
                attn_err, attn_times[(512, 69, 12, 64)], tc),
         record("matmul_bn_act", "matmul_bn_act.cu",
                "clipbert_tpu/ops/pallas_kernels.py:65", launches[1], mba_err,
-               mba_times[(FRAMES * 112 * 112, 64, 256, True)],
-               "128x128 tiles on mma.sync m16n8k16 (bf16 in, fp32 "
-               "accumulate), K slices through shared memory with a register "
-               "prefetch, BN scale/bias, residual and ReLU on the "
-               "accumulators"),
+               mba_times[(FRAMES, 112, 112, 64, 256, True, 1, True)],
+               "body wg: wgmma m64nNk16 (bf16 in, fp32 accumulate) in two "
+               "consumer warpgroups, fed by a producer warp's TMA loads into "
+               "a ring of 128B-swizzled shared-memory stages with mbarriers; "
+               "persistent blocks (one per SM) over 128 x BN tiles, BN 64 or "
+               "128 by N; BN scale/bias, residual and ReLU on the "
+               "accumulators, the residual in and the output out by TMA "
+               "through a ring of 128 x 64 shared-memory slots (earlier_ms: "
+               "body mma, 128 x 128 tiles on mma.sync m16n8k16, kept for "
+               "fp32 and operands TMA cannot describe)"),
         record("fused_stem_pool", "fused_stem_pool.cu",
                "clipbert_tpu/ops/pallas_stem.py:196", launches[2], stem_err,
                stem_time,

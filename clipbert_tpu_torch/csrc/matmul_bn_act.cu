@@ -15,31 +15,86 @@
 // conv reads pixel (b, ho*stride, wo*stride) for output row
 // r = (b*out_h + ho)*out_w + wo, so the subsampled input is never copied.
 // w is the conv weight in PyTorch's OIHW layout, (N, K, 1, 1): K contiguous
-// per output channel, which is the "col" B operand of mma.sync.
+// per output channel. Both operands are K-major, wgmma's native bf16 "TN"
+// layout, so neither is transposed.
 //
-// What bounds it on this card: the R50 1x1 convs at the eval shape do
-// 2*R*K*N FLOPs over (R*K + K*N + R*N [+ R*N]) * 2 bytes, 32 to 205 FLOP per
-// byte; the larger-K convs sit near the H100's ~295 FLOP/byte ridge, so
-// both the tensor-core rate and the memory passes matter. The unfused form
-// (cuDNN conv, then a bias add, a residual add and a ReLU pass) writes and
-// re-reads the (R, N) activation three to four times; this kernel reads
-// each operand once per tile and writes the output once.
+// What bounds it on this card. A call does 2*R*K*N FLOPs over (R*K + K*N +
+// R*N [+ R*N]) * 2 bytes. ResNet-50's 36 fused 1x1 convs of a 32-frame
+// encode at 448^2 run from 28 to 615 FLOP per byte against the H100's ~295
+// ridge: res2 (K = 64 or N = 64: 28-51 FLOP/byte, 43% of the encode's
+// 1.59 ms of bounds) and res3 are bound by bytes, and there a tile has one
+// to eight K steps, so the loads must overlap the previous tile's epilogue
+// or the card idles; the conv3s also read a residual as large as their
+// output. res4's K = 1024 conv1 sits near the ridge, and res5's and res4's
+// widest convs are bound by the tensor cores. The unfused form (cuDNN conv,
+// then a bias add, a residual add and a ReLU pass) writes and re-reads the
+// (R, N) activation three to four times; both bodies here read each operand
+// once per tile and write the output once.
 //
-// Design (a first, simple tensor-core kernel): 128 x 128 output tiles, 8
-// warps each owning a 64 x 32 sub-tile as 4 x 4 mma.sync m16n8k16 bf16
-// tiles with fp32 accumulators in registers; K advances 32 at a time
-// through shared memory (rows padded to 40 halves, so fragment loads hit
-// distinct banks), the next K slice is prefetched into registers while the
-// current one is multiplied; the epilogue runs on the accumulator
-// registers and stores pairs of outputs. Ragged R, N and K are masked (zero
-// fill on load, guarded stores). The fp32 instantiation stages the same
-// tiles and applies the same epilogue but multiplies on the CUDA cores in
-// fp32 (no TF32), so the card can hold the indexing to a tight fp32 bound.
-// wgmma, TMA and a multi-stage pipeline are later work.
+// Body "wg" (bf16 where TMA can describe the operands; every bf16 1x1 conv
+// of the main path):
+// - One persistent block per SM walks a static schedule of 128 x BN output
+//   tiles, BN in {64, 128, 256} chosen per shape so that N = 64 pads
+//   nothing; tiles are numbered with N fastest, so the blocks in flight
+//   share their A rows in L2.
+// - A producer warp keeps a ring of shared-memory stages full with TMA
+//   (cp.async.bulk.tensor): per stage a 128 x 64 A box and a BN x 64 B box,
+//   each row 64 bf16 = 128 bytes in the 128-byte swizzle, completion counted
+//   on an mbarrier; the consumers free a stage with a second mbarrier. TMA
+//   zero-fills what lies past R, K or N, so ragged edges need no masking in
+//   the main loop. The ring runs across tiles, so the next tile's loads are
+//   in flight while this one's epilogue runs: at K = 64 a tile has a single
+//   K step and this overlap is all there is.
+// - Two consumer warpgroups each own 64 rows and run wgmma.mma_async
+//   m64nBNk16 on the swizzled stages (shared-memory descriptors, 128-byte
+//   swizzle, 1024-byte stride between 8-row groups), the sums in fp32
+//   registers. setmaxnreg moves registers from the producer (40) to them
+//   (232), so BN = 256 (128 accumulators a thread) does not spill.
+// - The epilogue streams 128 x 64 sub-tiles through a ring of 4 shared-
+//   memory slots: the producer TMA-loads the residual sub-tile into a slot
+//   ahead of time; the consumers apply scale, bias, residual and ReLU to the
+//   accumulators in the mma body's order, round once to bf16 and write the
+//   result over the residual in the same slot (swizzled, so conflict-free);
+//   one thread TMA-stores the slot and goes on. A slot is handed back to the
+//   producer once its store has been read out (bulk-group wait .read), never
+//   waiting for the store to reach memory.
+// - A strided conv's A operand is a 3-D tensor map over the kept pixels:
+//   dims (K, out_w, B * out_h) with strides stride*K and stride*in_w*K
+//   elements, which holds when in_h and in_w divide by the stride. A tile is
+//   then whole output rows (floor(128 / out_w) of them: 112 of 128 rows at
+//   out_w 56 or 28, 126 at 14), so every box is one TMA load; the idle rows
+//   only cost tensor-core work, and these six launches of the encode are
+//   bound by bytes. The residual and output maps take the same form.
+// - No split-K and no atomics: each output keeps one summation order, so
+//   results are the same from run to run.
+// Tensor maps hold the pointers, so they are encoded on the host at each
+// launch (cuTensorMapEncodeTiled, fetched from the driver once) and passed
+// as __grid_constant__ parameters, which keeps a launch capturable in a CUDA
+// graph.
+//
+// Body "mma" (the first design, unchanged: fp32, and bf16 operands TMA
+// cannot describe: K or N not a multiple of 8, rows off 16-byte alignment,
+// a stride that does not divide H or W): 128 x 128 output tiles, 8 warps
+// each owning a 64 x 32 sub-tile as 4 x 4 mma.sync m16n8k16 bf16 tiles with
+// fp32 accumulators in registers; K advances 32 at a time through shared
+// memory (rows padded to 40 halves, so fragment loads hit distinct banks),
+// the next K slice is prefetched into registers while the current one is
+// multiplied; the epilogue runs on the accumulator registers and stores
+// pairs of outputs. Ragged R, N and K are masked (zero fill on load,
+// guarded stores). The fp32 instantiation stages the same tiles and applies
+// the same epilogue but multiplies on the CUDA cores in fp32 (no TF32), so
+// the card can hold the indexing to a tight fp32 bound.
+//
+// The caller (ops/matmul_bn_act.py::_plan) names the body, BN, stages,
+// threads, shared bytes and grid; the entry point derives them again and
+// refuses a launch whose plan differs (kPlanMismatch).
 
+#include <cuda.h>   // CUtensorMap and its enums; the encoder comes from the
+                    // driver at run time, so nothing links against libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -293,15 +348,588 @@ matmul_bn_act_kernel(Args a) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (x, w, residual and out share it).
-// Returns a cudaError_t; 0 means the kernel was launched.
+// ---------------------------------------------------------------------------
+// Body "wg": wgmma fed by a TMA ring, persistent blocks, streamed epilogue
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kBM = 128;          // output rows per tile: 2 warpgroups x 64
+constexpr int kBK = 64;           // K per stage: 128 bytes of bf16
+constexpr int kSubN = 64;         // epilogue sub-tile columns (128 bytes)
+constexpr int kSubBytes = kBM * kSubN * 2;
+constexpr int kEpiSlots = 4;      // epilogue sub-tiles in flight
+constexpr int kMaxStages = 8;
+constexpr int kSmemBudget = 232448;   // 227 KB: a block's most on sm_90
+constexpr int kAlign = 1024;      // the 128-byte swizzle repeats every 1 KB
+constexpr int kBarrierBytes = 256;
+constexpr int kWgThreads = 384;   // consumer warpgroups 0-1, producer 2
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// the ring gets what the epilogue slots, barriers and alignment leave
+constexpr int kStageRoom =
+    kSmemBudget - kAlign - kBarrierBytes - kEpiSlots * kSubBytes;
+__host__ __device__ constexpr int wg_stage_bytes(int bn) {
+  return (kBM + bn) * kBK * 2;
+}
+__host__ __device__ constexpr int wg_stages(int bn) {
+  return kStageRoom / wg_stage_bytes(bn) < kMaxStages
+             ? kStageRoom / wg_stage_bytes(bn)
+             : kMaxStages;
+}
+__host__ __device__ constexpr int wg_smem_bytes(int bn) {
+  return kAlign + wg_stages(bn) * wg_stage_bytes(bn) + kEpiSlots * kSubBytes +
+         kBarrierBytes;
+}
+
+struct WgArgs {
+  const float* scale;     // null: all ones
+  const float* bias;
+  long long num_tiles;
+  int N, num_k, num_n, has_res, relu;
+  int step1, step2;       // tile m's row coordinates: (m * step1, m * step2)
+  uint32_t a_bytes;       // one A box (= one residual / output sub-box)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed. A wait
+// that never ends (a protocol fault) traps after 2^26 polls, so the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// all but the newest `n` store groups have read their shared memory
+template <int n>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(n) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// the consumers' own barrier (id 1; 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int n>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(n) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+template <int n>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile in the 128-byte swizzle
+// that TMA wrote: rows of 128 bytes, 8-row groups 1024 bytes apart. A k16
+// step inside the 64-wide K box advances the start address by 32 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+#define WG_F8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x BN, fp32 registers) += A (64 x 16) * B (16 x BN), both K-major in
+// shared memory; `acc` 0 overwrites D.
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db,
+                                           int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t da,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t da,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+      WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+      WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<256>(float* d, uint64_t da,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+      WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+      WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56),
+      WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88),
+      WG_F8(96), WG_F8(104), WG_F8(112), WG_F8(120)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+#undef WG_F8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+matmul_bn_act_wg_kernel(const __grid_constant__ CUtensorMap tm_a,
+                        const __grid_constant__ CUtensorMap tm_b,
+                        const __grid_constant__ CUtensorMap tm_r,
+                        const __grid_constant__ CUtensorMap tm_o,
+                        const WgArgs a) {
+  constexpr int STAGES = wg_stages(BN);
+  constexpr int A_BYTES = kBM * kBK * 2, B_BYTES = BN * kBK * 2;
+  constexpr int SUBS = BN / kSubN;
+  static_assert(8 * (2 * STAGES + 2 * kEpiSlots) <= kBarrierBytes, "bars");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kAlign - 1) & ~uint32_t(kAlign - 1);
+  uint8_t* const smem = smem_raw + (base - raw);   // generic view of base
+  const uint32_t sA = base, sB = sA + STAGES * A_BYTES;
+  const uint32_t sE = sB + STAGES * B_BYTES;
+  const uint32_t bars = sE + kEpiSlots * kSubBytes;
+  // full[s]: stage s loaded; empty[s]: both warpgroups are done with it;
+  // efull[e]: residual in slot e; eempty[e]: slot e's store has read it out
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  auto efull = [&](int e) { return bars + 8 * (2 * STAGES + e); };
+  auto eempty = [&](int e) {
+    return bars + 8 * (2 * STAGES + kEpiSlots + e);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    for (int e = 0; e < kEpiSlots; ++e) {
+      mbar_init(efull(e), 1);
+      mbar_init(eempty(e), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread issues every load ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0, u = 0;
+      for (long long tile = blockIdx.x; tile < a.num_tiles;
+           tile += gridDim.x) {
+        const int m = int(tile / a.num_n), n = int(tile % a.num_n);
+        const int c1 = m * a.step1, c2 = m * a.step2;
+        for (int kt = 0; kt < a.num_k; ++kt) {
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect_tx(full(stage), a.a_bytes + B_BYTES);
+          tma_load(sA + stage * A_BYTES, &tm_a, kt * kBK, c1, c2,
+                   full(stage));
+          tma_load(sB + stage * B_BYTES, &tm_b, kt * kBK, n * BN, 0,
+                   full(stage));
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        if (a.has_res) {
+          const int subs = min(SUBS, (a.N - n * BN + kSubN - 1) / kSubN);
+          for (int q = 0; q < subs; ++q, ++u) {
+            const int e = u % kEpiSlots;
+            mbar_wait(eempty(e), ((u / kEpiSlots) & 1) ^ 1);
+            mbar_expect_tx(efull(e), a.a_bytes);
+            tma_load(sE + e * kSubBytes, &tm_r, n * BN + q * kSubN, c1, c2,
+                     efull(e));
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups 0 and 1: rows 64 * wg .. 64 * wg + 63 -------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+    const bool leader = tid == 0;            // frees stages for its group
+    const bool storer = threadIdx.x == 0;    // issues the output stores
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0, u = 0;
+    for (long long tile = blockIdx.x; tile < a.num_tiles; tile += gridDim.x) {
+      const int m = int(tile / a.num_n), n = int(tile % a.num_n);
+      const int c1 = m * a.step1, c2 = m * a.step2;
+      int prev = 0;
+      for (int kt = 0; kt < a.num_k; ++kt) {
+        mbar_wait(full(stage), phase);
+        const uint64_t da = sw128_desc(sA + stage * A_BYTES + wg * 64 * 128);
+        const uint64_t db = sw128_desc(sB + stage * B_BYTES);
+        fence_regs<BN / 2>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_bf16<BN>(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+        wgmma_commit();
+        fence_regs<BN / 2>(acc);
+        wgmma_wait<1>();            // the previous stage's products are done
+        if (kt > 0 && leader) mbar_arrive(empty(prev));
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(acc);
+      if (leader) mbar_arrive(empty(prev));
+
+      // Epilogue, one 128 x 64 sub-tile at a time: accumulator (row
+      // 64 wg + 16 warp + g + 8 h, column 8 j + 2 t + e) is register
+      // (8 q + j) * 4 + 2 h + e; its bf16 pair sits at byte row * 128 +
+      // ((j ^ row % 8) << 4) + 4 t of the slot (row % 8 == g).
+      const int subs = min(SUBS, (a.N - n * BN + kSubN - 1) / kSubN);
+#pragma unroll
+      for (int q = 0; q < SUBS; ++q) {
+        if (q < subs) {
+          const int e = u % kEpiSlots;
+          uint8_t* const slot = smem + (sE - base) + e * kSubBytes;
+          if (a.has_res) mbar_wait(efull(e), (u / kEpiSlots) & 1);
+#pragma unroll
+          for (int j = 0; j < kSubN / 8; ++j) {
+            const int col = n * BN + q * kSubN + j * 8 + 2 * t;
+            float s0 = 1.f, s1 = 1.f, b0 = 0.f, b1 = 0.f;
+            if (col < a.N) {            // N % 8 == 0: both or neither
+              b0 = a.bias[col];
+              b1 = a.bias[col + 1];
+              if (a.scale) {
+                s0 = a.scale[col];
+                s1 = a.scale[col + 1];
+              }
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = wg * 64 + warp * 16 + g + 8 * h;
+              uint32_t* p = reinterpret_cast<uint32_t*>(
+                  slot + row * 128 + ((j ^ g) << 4) + 4 * t);
+              const int i = (q * 8 + j) * 4 + 2 * h;
+              float v0 = acc[i] * s0 + b0, v1 = acc[i + 1] * s1 + b1;
+              if (a.has_res) {
+                const uint32_t r = *p;
+                v0 += __uint_as_float(r << 16);
+                v1 += __uint_as_float(r & 0xffff0000u);
+              }
+              if (a.relu) {
+                v0 = fmaxf(v0, 0.f);
+                v1 = fmaxf(v1, 0.f);
+              }
+              *p = pack_bf16(v0, v1);
+            }
+          }
+          // the generic-proxy writes, then the async proxy's read
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          consumers_sync();
+          if (storer) {
+            tma_store(&tm_o, sE + e * kSubBytes, n * BN + q * kSubN, c1, c2);
+            bulk_commit();
+            // the store before this one has read its slot out: hand that
+            // slot back (to the producer's residual load, or to the
+            // consumers' next write there, which follows two more syncs)
+            bulk_wait_read<1>();
+            if (u > 0) mbar_arrive(eempty((u - 1) % kEpiSlots));
+          }
+          ++u;
+        }
+      }
+    }
+    if (storer) bulk_wait_all();
+  }
+}
+
+// ---- host side of body "wg" ------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D bf16 map: dims (d0, d1, d2) innermost first, byte strides s1, s2 of
+// dims 1 and 2, box (64, b1, b2) in the 128-byte swizzle, zero fill past the
+// edges.
+bool encode_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
+                uint64_t d2, uint64_t s1, uint64_t s2, uint32_t b1,
+                uint32_t b2) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {uint32_t(kBK), b1, b2};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What TMA can take: bf16, 16-byte strides (K, N multiples of 8), 16-byte
+// aligned bases, and for a strided conv in_h and in_w divisible by the
+// stride (the kept pixels then form a regular 3-D view) with whole output
+// rows fitting a tile. R, K and N stay within TMA's 32-bit coordinates.
+bool wg_ok(int dtype, long long R, int K, int N, int stride, long long in_h,
+           long long in_w, long long out_w, bool aligned) {
+  return dtype == 1 && aligned && K % 8 == 0 && N % 8 == 0 &&
+         R + kBM <= INT_MAX &&
+         (stride == 1 ||
+          (in_h % stride == 0 && in_w % stride == 0 && out_w <= kBM));
+}
+
+// BN for N output channels: as wide as N needs, up to 128 (see _plan).
+int wg_tile_n(int N) { return N <= 64 ? 64 : 128; }
+
+struct WgGeometry {
+  long long num_m;
+  int b1, b2, step1, step2;
+};
+
+// How a tile of 128 rows maps onto the output: plain rows (stride 1), or
+// whole output rows of a strided conv (floor(128 / out_w) of them).
+WgGeometry wg_geometry(long long R, int stride, long long out_w) {
+  if (stride == 1) return {(R + kBM - 1) / kBM, kBM, 1, kBM, 0};
+  const int rows = kBM / int(out_w);
+  const long long lines = R / out_w;                  // B * out_h
+  return {(lines + rows - 1) / rows, int(out_w), rows, 0, rows};
+}
+
+template <int BN>
+cudaError_t launch_wg(const CUtensorMap& ta, const CUtensorMap& tb,
+                      const CUtensorMap& tr, const CUtensorMap& to,
+                      const WgArgs& a, unsigned grid, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      matmul_bn_act_wg_kernel<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem_bytes(BN));
+  if (attr != cudaSuccess) return attr;
+  matmul_bn_act_wg_kernel<BN>
+      <<<grid, kWgThreads, wg_smem_bytes(BN), st>>>(ta, tb, tr, to, a);
+  return cudaGetLastError();
+}
+
+constexpr int kPlanMismatch = -1;    // the caller's plan is not this one
+constexpr int kTensorMapFailed = -2;  // the driver refused a tensor map
+constexpr int kBodyMma = 0, kBodyWg = 1;
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16 (x, w, residual and out share it). body,
+// tile_n: the caller's plan (kBodyMma or kBodyWg, BN); forced: the body and
+// tile_n were chosen by the caller for a measurement, else they must be the
+// ones derived here; n_sms: the card's SM count; grid, threads, smem_bytes,
+// stages: the rest of the caller's plan, which must be the one derived here.
+// Returns the launch's cudaError_t (0 on success), kPlanMismatch or
+// kTensorMapFailed; does not synchronise.
 extern "C" int clipbert_matmul_bn_act(
     const void* x, const void* w, const void* scale, const void* bias,
     const void* residual, void* out, int dtype, long long R, int K, int N,
     int stride, long long in_h, long long in_w, long long out_h,
-    long long out_w, int relu, void* stream) {
-  if (R < 0 || K <= 0 || N <= 0 || stride < 1) return cudaErrorInvalidValue;
+    long long out_w, int relu, int body, int tile_n, int forced, int n_sms,
+    long long grid, int threads, int smem_bytes, int stages, void* stream) {
+  if (R < 0 || K <= 0 || N <= 0 || stride < 1 || n_sms < 1)
+    return cudaErrorInvalidValue;
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(residual) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool can_wg =
+      wg_ok(dtype, R, K, N, stride, in_h, in_w, out_w, aligned);
+  if (!forced && (body != (can_wg ? kBodyWg : kBodyMma) ||
+                  (can_wg && tile_n != wg_tile_n(N))))
+    return kPlanMismatch;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  if (body == kBodyWg) {
+    if (!can_wg || (tile_n != 64 && tile_n != 128 && tile_n != 256))
+      return kPlanMismatch;
+    const WgGeometry geo = wg_geometry(R, stride, out_w);
+    const int num_n = (N + tile_n - 1) / tile_n;
+    const long long tiles = geo.num_m * num_n;
+    const long long blocks = tiles < n_sms ? tiles : n_sms;
+    if (grid != blocks || threads != kWgThreads ||
+        smem_bytes != wg_smem_bytes(tile_n) || stages != wg_stages(tile_n))
+      return kPlanMismatch;
+    if (R == 0) return cudaSuccess;
+    // A: the kept pixels (K, rows); B: w (K, N); residual and output:
+    // (N, rows), rows as the tile geometry lays them out
+    const uint64_t k2 = uint64_t(K) * 2, n2 = uint64_t(N) * 2;
+    const uint64_t lines = stride == 1 ? 1 : uint64_t(R / out_w);
+    const uint64_t d1 = stride == 1 ? uint64_t(R) : uint64_t(out_w);
+    CUtensorMap ta, tb, tr, to;
+    bool ok =
+        encode_map(&ta, x, K, d1, lines, k2 * stride,
+                   stride == 1 ? k2 * R : k2 * stride * in_w, geo.b1,
+                   geo.b2) &&
+        encode_map(&tb, w, K, N, 1, k2, k2 * N, tile_n, 1) &&
+        encode_map(&to, out, N, d1, lines, n2, n2 * d1, geo.b1, geo.b2);
+    if (ok && residual != nullptr)
+      ok = encode_map(&tr, residual, N, d1, lines, n2, n2 * d1, geo.b1,
+                      geo.b2);
+    if (!ok) return kTensorMapFailed;
+    WgArgs a{static_cast<const float*>(scale),
+             static_cast<const float*>(bias),
+             tiles,
+             N,
+             (K + kBK - 1) / kBK,
+             num_n,
+             residual != nullptr,
+             relu,
+             geo.step1,
+             geo.step2,
+             uint32_t(kBK * geo.b1 * geo.b2 * 2)};
+    const CUtensorMap& res_map = residual != nullptr ? tr : to;
+    switch (tile_n) {
+      case 64:
+        return launch_wg<64>(ta, tb, res_map, to, a, unsigned(blocks), st);
+      case 128:
+        return launch_wg<128>(ta, tb, res_map, to, a, unsigned(blocks), st);
+      default:
+        return launch_wg<256>(ta, tb, res_map, to, a, unsigned(blocks), st);
+    }
+  }
+
+  if (body != kBodyMma) return kPlanMismatch;
+  const long long tiles = ((R + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (tile_n != BN || grid != tiles || threads != kThreads ||
+      smem_bytes != 0 || stages != 1)
+    return kPlanMismatch;
   if (R == 0) return cudaSuccess;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int chunk_bytes = 16;
   const int esize = dtype == 1 ? 2 : 4;
   Args a{x, w, static_cast<const float*>(scale),
@@ -310,9 +938,6 @@ extern "C" int clipbert_matmul_bn_act(
   a.vec = (K * esize) % chunk_bytes == 0 &&
           reinterpret_cast<uintptr_t>(x) % chunk_bytes == 0 &&
           reinterpret_cast<uintptr_t>(w) % chunk_bytes == 0;
-  const long long tiles = ((R + BM - 1) / BM) * ((N + BN - 1) / BN);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       matmul_bn_act_kernel<false><<<unsigned(tiles), kThreads, 0, st>>>(a);

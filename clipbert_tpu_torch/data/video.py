@@ -105,14 +105,15 @@ _NATIVE_PATHS = (
     "libclipbert_data.so",
 )
 _native_lib = None
-_native_checked = False
 
 
 def _load_native():
-    global _native_lib, _native_checked
-    if _native_checked:
+    """The native decoder library, or None. Only a hit is cached: a miss is
+    looked up again on the next call, so a library built after the first
+    lookup (``make -C native``) is found."""
+    global _native_lib
+    if _native_lib is not None:
         return _native_lib
-    _native_checked = True
     for p in _NATIVE_PATHS:
         try:
             lib = ctypes.CDLL(os.path.abspath(p) if os.path.sep in p else p)
