@@ -9,8 +9,8 @@ Phases; any failure raises and the script exits non-zero:
  2. build: compiles the three csrc/*.cu libraries with nvcc, one process
     per source, all started together (timed), and prints each kernel's
     ptxas registers and spills; every instantiation of the attention
-    kernel's tensor-core body and of matmul_bn_act's wgmma body must spill
-    nothing.
+    kernel's tensor-core body, of matmul_bn_act's wgmma body and of the
+    stem's tensor-core body must spill nothing.
  3. kernel vs plain, fused attention: the kernel against its plain PyTorch
     version at the serving, eval, ragged, tensor-core edge and longest
     shapes, fp32 and bf16, contiguous operands, strided views of one merged
@@ -34,27 +34,30 @@ Phases; any failure raises and the script exits non-zero:
     the residual add and ReLU the shape has) are timed in turns as CUDA
     graph replays, then wg's three tile widths in turns; then the sums over
     one encode's 36 launches (launches x ms) and their bound.
- 5. kernel vs plain, fused_stem_pool: 32 x 448^2 and small and odd sizes,
-    fp32 and bf16; timed at 32 frames beside cuDNN conv + bias + ReLU +
-    max_pool2d.
+ 5. kernel vs plain, fused_stem_pool: 32 and 2 frames of 448^2 and small
+    and odd sizes, fp32 (body direct), bf16 (the tensor-core body "tc",
+    ops/fused_stem_pool.py::_plan) and bf16 on the direct body (forced),
+    checking the counters agree; tc, direct, the plain version and cuDNN's
+    conv + bias + ReLU + max_pool2d timed in turns as CUDA graph replays at
+    32 and 2 frames.
  6. the serving slice at full width: RetrievalScorer on configs/
     base_model.json with random weights from a seeded generator, at 1 and
     16 clips, requests of 1, 5 and 32 captions on seeded uint8 240x320
     frames. Counts from 0: every scoring call must launch attention once
     per encoder layer, on the tensor-core body, every encode 36 fused 1x1
-    convs, all on the wgmma body, and one fused stem.
-    Then the CNN's kernel form and cuDNN form in turns; their grid features
-    on the same frames must agree within FEAT_REL, as must the kernel
-    form's with matmul_bn_act's two bodies, and the kernel form with a
-    planted wiring fault must not. Then one request through the plain
-    attention path.
+    convs, all on the wgmma body, and one fused stem, on its tensor-core
+    body. Then the CNN's kernel form and cuDNN form in turns; their grid
+    features on the same frames must agree within FEAT_REL, as must the
+    kernel form's with matmul_bn_act's two bodies and with the stem's two
+    bodies, and the kernel form with a planted wiring fault must not. Then
+    one request through the plain attention path.
  7. the eval path at full width: tasks.run_video_retrieval.
     inference_retrieval with the configs/msrvtt_ret_base_resnet50.json
     settings (16 clips x 2 frames at 448^2, text length 20, bf16, folded
     BN) on a synthetic store of 16 seeded 240x320 JPEG-sequence videos and
     72 captions. Counts from 0: 36 + 1 CNN launches per encode, the 36
-    on the wgmma body, 12 attention launches per prob dispatch, all on the
-    tensor-core body.
+    on the wgmma body and the stem on its tensor-core body, 12 attention
+    launches per prob dispatch, all on the tensor-core body.
     Then the same eval in the cuDNN form; the score matrices must agree
     within PROB_ATOL, and the first video group's grid features within
     FEAT_REL, as in phase 6.
@@ -76,9 +79,9 @@ Phases; any failure raises and the script exits non-zero:
 11. multi-process eval: 2 processes on this card over gloo (phase 10's
     pair of ranks, once their scoring is done, which saves a spawn) run
     inference_retrieval on phase 7's store; every video is scored once,
-    every fused 1x1 conv runs the wgmma body, the merged matrix is
-    bit-identical to phase 7's (the same group and minibatch shapes), and
-    its R@K is the merged matrix's.
+    every fused 1x1 conv runs the wgmma body and every stem the tc body,
+    the merged matrix is bit-identical to phase 7's (the same group and
+    minibatch shapes), and its R@K is the merged matrix's.
 12. the attention bodies end to end, in turns: the tensor-core body
     against the v2 body (forced for this measurement only) in the scoring
     call of a 1-clip and a 16-clip request with 32 captions (windows tc,
@@ -91,9 +94,15 @@ Phases; any failure raises and the script exits non-zero:
     8 x 16 and 128 x 1 clips, and phase 7's eval (wg, mma, mma, wg); the
     wg eval's matrix must be bit-identical to phase 7's and the mma eval's
     within PROB_ATOL of it.
+14. (run after phase 12) the stem's bodies end to end, in turns: the tc
+    body against the direct body (forced for this measurement only) in the
+    16-clip and the 1-clip encode (windows tc, direct, direct, tc, direct,
+    tc, tc, direct; their grid features on the same frames within
+    FEAT_REL) and the bench unit at 8 x 16 and 128 x 1 clips.
  9. the last two lines: the kernels' JSON record (each kernel's design, and
     the earlier body's time beside it as ``earlier_ms``: attention's v2,
-    matmul_bn_act's mma), then {"ok": true, "device": {...}}.
+    matmul_bn_act's mma, the stem's direct), then {"ok": true, "device":
+    {...}}.
 
 The ranks of phases 10 and 11 share the one card, so their process group
 runs over gloo, passed explicitly (NCCL refuses two ranks on one device):
@@ -142,8 +151,10 @@ from clipbert_tpu_torch.utils.distributed import spawn_ranks
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LIBRARIES = ("fused_attention", "matmul_bn_act", "fused_stem_pool")
 # the register-resident bodies, every instantiation of which must not spill:
-# attention's tensor-core body and matmul_bn_act's wgmma body (one per BN)
-NO_SPILL = ("fused_attention_tc_kernel", "matmul_bn_act_wg_kernel")
+# attention's tensor-core body, matmul_bn_act's wgmma body (one per BN) and
+# the stem's tensor-core body
+NO_SPILL = ("fused_attention_tc_kernel", "matmul_bn_act_wg_kernel",
+            "fused_stem_pool_tc_kernel")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -244,7 +255,8 @@ def _kernel_name(mangled: str) -> str:
     true, 13__nv_bfloat16 and f the types)."""
     m = re.search(r"([a-z_]+_kernel)I(\w+?)EEv", mangled)
     if not m:
-        return mangled
+        m = re.search(r"\d([a-z_]+_kernel)E", mangled)      # no template
+        return m.group(1) if m else mangled
     args = m.group(2).replace("13__nv_bfloat16", "bf16,")
     args = re.sub(r"L[ib](\d+)E", r"\1,", args)
     if args.startswith("f"):
@@ -293,9 +305,11 @@ def phase_build() -> float:
               for body in NO_SPILL}
     print(f"build: {counts[NO_SPILL[0]]} instantiations of the attention "
           f"kernel's tensor-core body, {counts[NO_SPILL[1]]} of "
-          f"matmul_bn_act's wgmma body, {len(spilled)} spilling")
+          f"matmul_bn_act's wgmma body, {counts[NO_SPILL[2]]} of the stem's "
+          f"tensor-core body, {len(spilled)} spilling")
     if spilled or counts[NO_SPILL[0]] == 0 or \
-            counts[NO_SPILL[1]] != len(mba.WG_TILE_NS):
+            counts[NO_SPILL[1]] != len(mba.WG_TILE_NS) or \
+            counts[NO_SPILL[2]] != 1:
         raise AssertionError(f"instantiations {counts}; spilling: {spilled}")
     return dt
 
@@ -709,44 +723,82 @@ def _stem_inputs(B, H, W, dtype, gen):
     return x, w, b
 
 
+# fused_stem_pool's cases: one 16-clip request's 32 frames and one clip's 2
+# at the main path's 448^2, a small square, a non-square with W % 8 == 0
+# (the tc body's 16-byte halo copies) and an odd size (its element-wise
+# staging, partial tiles on both edges)
+STEM_SHAPES = ((FRAMES, 448, 448), (2, 448, 448), (2, 64, 64), (1, 48, 80),
+               (1, 37, 53))
+
+
+def _stem_check(B, H, W, dtype, gen, body=None):
+    """One case of the kernel against its plain version; returns (max abs
+    error, body). The counters must show the body _plan chose (or
+    ``body``)."""
+    x, w, b = _stem_inputs(B, H, W, dtype, gen)
+    ref = fsp.fused_stem_pool_reference(x, w, b)
+    plan = fsp._plan(B, H, W, dtype, True, fsp._n_sms(0), body)
+    before = (fsp.LAUNCHES, fsp.TC_LAUNCHES)
+    out = (fsp.fused_stem_pool(x, w, b) if body is None
+           else fsp._launch(x, w, b, body=body))
+    torch.cuda.synchronize()
+    ran = (fsp.LAUNCHES - before[0], fsp.TC_LAUNCHES - before[1])
+    mag = F.conv2d(x.permute(0, 3, 1, 2).float().abs(),
+                   w.to(dtype).float().abs(), None, 2, 3)
+    mag = F.max_pool2d(mag + b.abs()[None, :, None, None], 3, 2, 1)
+    what = (f"fused_stem_pool {(B, H, W)} -> {tuple(out.shape)}: body "
+            f"{plan.body} ({plan.grid} blocks of {plan.threads}, "
+            f"{plan.smem_bytes} B shared{', forced' if body else ''})")
+    err = _check_close(what, out, ref, mag.permute(0, 2, 3, 1), dtype)
+    if ran != (1, int(plan.body == "tc")):
+        raise AssertionError(f"{what}: counters moved {ran}, plan {plan}")
+    return err, plan.body
+
+
 def phase_stem(gen):
+    """Both bodies against the plain version at STEM_SHAPES, then tc, direct
+    (as the earlier design), plain and cuDNN's conv + bias + ReLU +
+    max_pool2d timed in turns as CUDA graph replays at 32 and 2 frames.
+    Returns the worst bf16 error and {frames: timing}."""
     bf16_err = 0.0
-    for B, H, W in ((FRAMES, 448, 448), (2, 64, 64), (1, 48, 80),
-                    (1, 37, 53)):
-        for dtype in (torch.float32, torch.bfloat16):
-            x, w, b = _stem_inputs(B, H, W, dtype, gen)
-            ref = fsp.fused_stem_pool_reference(x, w, b)
-            out = fsp.fused_stem_pool(x, w, b)
-            torch.cuda.synchronize()
-            mag = F.conv2d(x.permute(0, 3, 1, 2).float().abs(),
-                           w.to(dtype).float().abs(), None, 2, 3)
-            mag = F.max_pool2d(mag + b.abs()[None, :, None, None], 3, 2, 1)
-            err = _check_close(f"fused_stem_pool {(B, H, W)} -> "
-                               f"{tuple(out.shape)}", out, ref,
-                               mag.permute(0, 2, 3, 1), dtype)
+    for B, H, W in STEM_SHAPES:
+        for dtype, body in ((torch.float32, None), (torch.bfloat16, None),
+                            (torch.bfloat16, "direct")):
+            err, ran = _stem_check(B, H, W, dtype, gen, body)
             if dtype == torch.bfloat16:
                 bf16_err = max(bf16_err, err)
-            del x, w, b, ref, out, mag
-    x, w, b = _stem_inputs(FRAMES, 448, 448, torch.bfloat16, gen)
-    xc = x.permute(0, 3, 1, 2)                    # channels_last view
-    wc = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    b16 = b.to(torch.bfloat16)[None, :, None, None]
-    ms = _in_turns(
-        lambda: fsp.fused_stem_pool(x, w, b),
-        lambda: fsp.fused_stem_pool_reference(x, w, b), 10,
-        lambda: F.max_pool2d(torch.relu(F.conv2d(xc, wc, None, 2, 3) + b16),
-                             3, 2, 1))
-    nbytes = (FRAMES * 448 * 448 * 3 + FRAMES * 112 * 112 * 64) * 2 + \
-        64 * 147 * 2 + 64 * 4
-    bound = _bound_ms(2 * FRAMES * 224 * 224 * 64 * 147, nbytes)
-    t = _timing(ms, bound)
-    print(f"time bf16 fused_stem_pool {(FRAMES, 448, 448)}: kernel "
-          f"{_windows(ms, 'kernel')} ms, plain {_windows(ms, 'plain')} ms, "
-          f"cuDNN conv+bias+relu+max_pool2d {t['library_ms']:.4f} ms, bound "
-          f"{bound[0]:.4f} ms ({bound[1]})")
-    del x, w, b, xc, wc, b16
-    torch.cuda.empty_cache()
-    return bf16_err, t
+                if body is None and ran != "tc":
+                    raise AssertionError(f"bf16 stem {(B, H, W)} ran body "
+                                         f"{ran}, not tc")
+    times = {}
+    for B in (FRAMES, 2):
+        x, w, b = _stem_inputs(B, 448, 448, torch.bfloat16, gen)
+        xc = x.permute(0, 3, 1, 2)                    # channels_last view
+        wc = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        b16 = b.to(torch.bfloat16)[None, :, None, None]
+        iters = 10 if B == FRAMES else 40
+        ms = _in_turns(
+            lambda: fsp.fused_stem_pool(x, w, b),
+            lambda: fsp.fused_stem_pool_reference(x, w, b), iters,
+            lambda: F.max_pool2d(torch.relu(F.conv2d(xc, wc, None, 2, 3)
+                                            + b16), 3, 2, 1),
+            lambda: fsp._launch(x, w, b, body="direct"), graph=True)
+        nbytes = (B * 448 * 448 * 3 + B * 112 * 112 * 64) * 2 + \
+            64 * 147 * 4 + 64 * 4
+        flops = 2 * B * 224 * 224 * 64 * 147
+        bound = _bound_ms(flops, nbytes)
+        t = times[B] = _timing(ms, bound)
+        print(f"time bf16 fused_stem_pool {(B, 448, 448)} (device time, CUDA "
+              f"graph of {iters} calls): tc {_windows(ms, 'kernel')} ms "
+              f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{bound[0] / t['ms']:.1%} of bound), direct "
+              f"{_windows(ms, 'earlier')} ms, plain {_windows(ms, 'plain')} "
+              f"ms, cuDNN conv+bias+relu+max_pool2d "
+              f"{_windows(ms, 'library')} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
+        del x, w, b, xc, wc, b16
+        torch.cuda.empty_cache()
+    return bf16_err, times
 
 
 @contextlib.contextmanager
@@ -798,15 +850,26 @@ def _check_cnn_forms(what, model, encode, score):
     if ran[0] == 0 or ran[1] != 0:
         raise AssertionError(f"{what}: the forced mma.sync encode launched "
                              f"(all, wgmma) {ran}")
+    before = (fsp.LAUNCHES, fsp.TC_LAUNCHES)
+    with _stem_body("direct"):
+        stem_gap = _rel_gap(encode("kernels"), feats)
+    ran = (fsp.LAUNCHES - before[0], fsp.TC_LAUNCHES - before[1])
+    if ran[0] == 0 or ran[1] != 0:
+        raise AssertionError(f"{what}: the forced direct-stem encode "
+                             f"launched (all, tc) {ran}")
     print(f"{what}: grid features, kernel form vs cuDNN form: relative gap "
           f"{gap:.3e}; matmul_bn_act's wgmma body vs its mma.sync body "
-          f"(forced): {body_gap:.3e} (bound {FEAT_REL})")
+          f"(forced): {body_gap:.3e}; the stem's tc body vs its direct body "
+          f"(forced): {stem_gap:.3e} (bound {FEAT_REL})")
     if not gap <= FEAT_REL:
         raise AssertionError(f"{what}: the CNN's two forms' grid features "
                              f"differ by {gap} > {FEAT_REL}")
     if not body_gap <= FEAT_REL:
         raise AssertionError(f"{what}: matmul_bn_act's two bodies' grid "
                              f"features differ by {body_gap} > {FEAT_REL}")
+    if not stem_gap <= FEAT_REL:
+        raise AssertionError(f"{what}: the stem's two bodies' grid features "
+                             f"differ by {stem_gap} > {FEAT_REL}")
     r50 = model.cnn.resnet
     for fault, name, block in (("residual", "res4[2]", r50.res4[2]),
                                ("hw", "res3[1]", r50.res3[1])):
@@ -831,14 +894,15 @@ def _captions(rng, n):
 
 def _reset_counts():
     fa.LAUNCHES = fa.TC_LAUNCHES = fa.SHARD_HEADS_LAUNCHES = 0
-    mba.LAUNCHES = mba.WG_LAUNCHES = fsp.LAUNCHES = 0
+    mba.LAUNCHES = mba.WG_LAUNCHES = fsp.LAUNCHES = fsp.TC_LAUNCHES = 0
 
 
 def _counts():
     """(attention, matmul_bn_act, fused_stem_pool, attention on the
-    tensor-core body, matmul_bn_act on the wgmma body) launches."""
+    tensor-core body, matmul_bn_act on the wgmma body, fused_stem_pool on
+    the tensor-core body) launches."""
     return (fa.LAUNCHES, mba.LAUNCHES, fsp.LAUNCHES, fa.TC_LAUNCHES,
-            mba.WG_LAUNCHES)
+            mba.WG_LAUNCHES, fsp.TC_LAUNCHES)
 
 
 def _expect(what, got, want):
@@ -907,12 +971,15 @@ def phase_slice(model, cfg, tok):
                 _expect("encode, matmul_bn_act on the wgmma body", d[4],
                         MBA_PER_ENCODE)
                 _expect("encode, fused_stem_pool", d[2], 1)
+                _expect("encode, fused_stem_pool on the tensor-core body",
+                        d[5], 1)
     launches = _counts()
     print(f"serving path: {n_calls} requests launched attention "
           f"{launches[0]} ({launches[3]} on the tensor-core body), "
           f"matmul_bn_act {launches[1]} ({launches[4]} on the wgmma body) "
-          f"and fused_stem_pool {launches[2]} times ({cfg.num_hidden_layers}"
-          f", {MBA_PER_ENCODE} and 1 per request)")
+          f"and fused_stem_pool {launches[2]} ({launches[5]} on the "
+          f"tensor-core body) times ({cfg.num_hidden_layers}, "
+          f"{MBA_PER_ENCODE} and 1 per request)")
     for nc in frames:
         per = ", ".join(f"{n} caption(s) {np.median(lat[nc][n]) * 1e3:.2f} ms"
                         for n in REQUEST_SIZES)
@@ -1076,11 +1143,14 @@ def phase_eval(model, model_cfg, tok, cfg, d):
             _expect("eval, matmul_bn_act on the wgmma body", launches[4],
                     MBA_PER_ENCODE * g)
             _expect("eval, fused_stem_pool", launches[2], g)
+            _expect("eval, fused_stem_pool on the tensor-core body",
+                    launches[5], g)
             print(f"eval path: {g} video groups x {n_cap_batches} caption "
                   f"minibatches launched attention {launches[0]} "
                   f"({launches[3]} on the tensor-core body), matmul_bn_act "
                   f"{launches[1]} ({launches[4]} on the wgmma body) and "
-                  f"fused_stem_pool {launches[2]} times")
+                  f"fused_stem_pool {launches[2]} ({launches[5]} on the "
+                  f"tensor-core body) times")
         _check_matrix(m["score_matrix"])
         if ds.n_fallbacks:
             raise AssertionError(f"{ds.n_fallbacks} videos did not decode")
@@ -1098,21 +1168,31 @@ def phase_eval(model, model_cfg, tok, cfg, d):
     return launches, results["kernels"], walls["kernels"], path, rows
 
 
+BENCH_UNITS = ((16, 8), (1, 128))     # (clips, videos): 256 frames a call
+
+
+def _bench_unit(rng, cfg, nc, bv):
+    """bench.py's unit: mil_forward's task settings and a batch of bv
+    videos x nc clips of 2 random bf16 448^2 frames, 20 text tokens."""
+    ts = steps.TaskSettings(head_type="retrieval", loss_type="ce",
+                            score_agg_func="lse", train_n_clips=nc)
+    batch = {
+        "text_input_ids": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (bv, 20))).cuda(),
+        "text_input_mask": torch.ones(bv, 20, dtype=torch.int64,
+                                      device="cuda"),
+        "visual_inputs": (torch.from_numpy(rng.standard_normal(
+            (bv, nc * 2, 448, 448, 3), np.float32)) * 0.5).to(
+            "cuda", torch.bfloat16)}
+    return ts, batch
+
+
 def phase_bench(model, cfg):
     """bench.py's unit (mil_forward, no fused attention, folded BN, bf16) at
     8 videos x 16 clips and 128 videos x 1 clip, both CNN forms in turns."""
     rng = np.random.default_rng(0)
-    for nc, bv in ((16, 8), (1, 128)):
-        ts = steps.TaskSettings(head_type="retrieval", loss_type="ce",
-                                score_agg_func="lse", train_n_clips=nc)
-        batch = {
-            "text_input_ids": torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, (bv, 20))).cuda(),
-            "text_input_mask": torch.ones(bv, 20, dtype=torch.int64,
-                                          device="cuda"),
-            "visual_inputs": (torch.from_numpy(rng.standard_normal(
-                (bv, nc * 2, 448, 448, 3), np.float32)) * 0.5).to(
-                "cuda", torch.bfloat16)}
+    for nc, bv in BENCH_UNITS:
+        ts, batch = _bench_unit(rng, cfg, nc, bv)
         runs = {}
         for form in ("kernels", "cudnn"):
             runs[form] = (lambda f=form: steps.mil_forward(
@@ -1486,6 +1566,8 @@ def phase_multiprocess_eval(cfg, run_cfg, tok, path, rows, single,
         _expect(f"eval rank {r}, matmul_bn_act on the wgmma body",
                 out["launches"][4], MBA_PER_ENCODE * g)
         _expect(f"eval rank {r}, fused_stem_pool", out["launches"][2], g)
+        _expect(f"eval rank {r}, fused_stem_pool on the tensor-core body",
+                out["launches"][5], g)
         if out["fallbacks"]:
             raise AssertionError(f"rank {r}: {out['fallbacks']} videos did "
                                  "not decode")
@@ -1517,27 +1599,20 @@ def phase_multiprocess_eval(cfg, run_cfg, tok, path, rows, single,
 
 
 @contextlib.contextmanager
-def _mba_body(body: str):
-    """matmul_bn_act forced to ``body``: for the comparisons of the two
-    bodies only; nothing else runs forced."""
-    real = mba._launch
-    mba._launch = functools.partial(real, body=body)
+def _forced_body(module, body: str):
+    """The kernel of ``module`` (fa, mba or fsp) forced to ``body``: for the
+    comparisons of its bodies only; nothing else runs forced."""
+    real = module._launch
+    module._launch = functools.partial(real, body=body)
     try:
         yield
     finally:
-        mba._launch = real
+        module._launch = real
 
 
-@contextlib.contextmanager
-def _attention_body(body: str):
-    """The attention kernel forced to ``body``: for phase 12's measurement
-    only; nothing else runs forced."""
-    real = fa._launch
-    fa._launch = functools.partial(real, body=body)
-    try:
-        yield
-    finally:
-        fa._launch = real
+_attention_body = functools.partial(_forced_body, fa)
+_mba_body = functools.partial(_forced_body, mba)
+_stem_body = functools.partial(_forced_body, fsp)
 
 
 def _windows_in_turns(call, force, bodies):
@@ -1560,6 +1635,27 @@ def _windows_in_turns(call, force, bodies):
         ms[body] += win
         windows.append(f"{body} {np.median(win):.2f}")
     return ms, ", ".join(windows)
+
+
+def _bench_in_turns(what, model, cfg, rng, force, bodies):
+    """The bench unit's clips/s at BENCH_UNITS, kernel form, under
+    ``force(body)`` for each of two bodies in turns (A, B, B, A)."""
+    a, b = bodies
+    for nc, bv in BENCH_UNITS:
+        ts, batch = _bench_unit(rng, cfg, nc, bv)
+        rate = {a: [], b: []}
+        for body in (a, b, b, a):
+            with force(body):
+                t = _time_ms(lambda: steps.mil_forward(
+                    model, cfg, ts, batch, torch.bfloat16, use_kernels=True),
+                    2)
+            rate[body].append(bv * nc / (t / 1e3))
+        print(f"{what} end to end, bench unit {bv} videos x {nc} clip(s), "
+              "kernel form: " + ", ".join(
+                  f"{k} " + " / ".join(f"{r:.1f}" for r in rate[k])
+                  + " clips/s" for k in bodies))
+        del batch
+        torch.cuda.empty_cache()
 
 
 def _eval_in_turns(what, force, bodies, counter, per_group, run_cfg, cfg,
@@ -1634,33 +1730,47 @@ def phase_cnn_bodies(model, cfg, tok, run_cfg, path, rows, single):
           f"({8 * REPEATS} calls each, in turns): p50 wg "
           f"{np.median(ms['wg']):.2f} ms, mma {np.median(ms['mma']):.2f} ms; "
           f"window p50s {windows} ms")
-    for nc, bv in ((16, 8), (1, 128)):
-        ts = steps.TaskSettings(head_type="retrieval", loss_type="ce",
-                                score_agg_func="lse", train_n_clips=nc)
-        batch = {
-            "text_input_ids": torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, (bv, 20))).cuda(),
-            "text_input_mask": torch.ones(bv, 20, dtype=torch.int64,
-                                          device="cuda"),
-            "visual_inputs": (torch.from_numpy(rng.standard_normal(
-                (bv, nc * 2, 448, 448, 3), np.float32)) * 0.5).to(
-                "cuda", torch.bfloat16)}
-        rate = {"wg": [], "mma": []}
-        for body in ("wg", "mma", "mma", "wg"):
-            with _mba_body(body):
-                t = _time_ms(lambda: steps.mil_forward(
-                    model, cfg, ts, batch, torch.bfloat16, use_kernels=True),
-                    2)
-            rate[body].append(bv * nc / (t / 1e3))
-        print(f"matmul_bn_act bodies end to end, bench unit {bv} videos x "
-              f"{nc} clip(s), kernel form: wg "
-              + " / ".join(f"{r:.1f}" for r in rate["wg"]) + " clips/s, mma "
-              + " / ".join(f"{r:.1f}" for r in rate["mma"]) + " clips/s")
-        del batch
-        torch.cuda.empty_cache()
+    _bench_in_turns("matmul_bn_act bodies", model, cfg, rng, _mba_body,
+                    ("wg", "mma"))
     _eval_in_turns("matmul_bn_act bodies", _mba_body, ("wg", "mma"), 4,
                    MBA_PER_ENCODE, run_cfg, cfg, model, tok, path, rows,
                    single)
+
+
+def phase_stem_bodies(model, cfg, tok):
+    """Phase 14: the stem's tc body against its direct body (forced) end to
+    end, in turns: the 16-clip and 1-clip encodes (the grid features of
+    the two bodies on the same frames within FEAT_REL) and the bench
+    unit."""
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(14)
+    for nc in (16, 1):
+        sc = RetrievalScorer(model, cfg, tok, n_clips=nc, device="cuda",
+                             compute_dtype=torch.bfloat16, num_frm=2,
+                             max_img_size=448, max_txt_len=20,
+                             max_captions=32)
+        frames = rng.integers(0, 256, (2 * nc, 240, 320, 3), np.uint8)
+        feats = {}
+        for body in ("tc", "direct"):
+            before = (fsp.LAUNCHES, fsp.TC_LAUNCHES)
+            with _stem_body(body):
+                feats[body] = sc.encode_frames(frames)
+            _expect(f"{nc}-clip encode, stem body {body}, tc launches",
+                    fsp.TC_LAUNCHES - before[1], int(body == "tc"))
+        gap = _rel_gap(feats["tc"], feats["direct"])
+        ms, windows = _windows_in_turns(lambda: sc.encode_frames(frames),
+                                        _stem_body, ("tc", "direct"))
+        print(f"stem bodies end to end, {nc}-clip encode_frames "
+              f"({8 * REPEATS} calls each, in turns): p50 tc "
+              f"{np.median(ms['tc']):.2f} ms, direct "
+              f"{np.median(ms['direct']):.2f} ms; window p50s {windows} ms; "
+              f"grid features tc vs direct: relative gap {gap:.3e} (bound "
+              f"{FEAT_REL})")
+        if not gap <= FEAT_REL:
+            raise AssertionError(f"{nc}-clip encode: the stem's two bodies' "
+                                 f"grid features differ by {gap}")
+    _bench_in_turns("stem bodies", model, cfg, rng, _stem_body,
+                    ("tc", "direct"))
 
 
 def main() -> None:
@@ -1669,7 +1779,7 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     attn_err, attn_times = phase_attention(gen)
     mba_err, mba_times, _ = phase_matmul_bn_act(gen)
-    stem_err, stem_time = phase_stem(gen)
+    stem_err, stem_times = phase_stem(gen)
 
     run_cfg = load_run_config(
         ["--config", os.path.join(ROOT, "configs",
@@ -1691,6 +1801,7 @@ def main() -> None:
         phase_multiprocess_eval(model_cfg, run_cfg, tok, path, rows, matrix,
                                 wall, eval_outs)
         phase_bodies(model, model_cfg, tok, run_cfg, path, rows, matrix)
+        phase_stem_bodies(model, model_cfg, tok)
         phase_cnn_bodies(model, model_cfg, tok, run_cfg, path, rows, matrix)
 
     def record(name, source, replaces, n, err, t, design):
@@ -1723,9 +1834,17 @@ def main() -> None:
                "fp32 and operands TMA cannot describe)"),
         record("fused_stem_pool", "fused_stem_pool.cu",
                "clipbert_tpu/ops/pallas_stem.py:196", launches[2], stem_err,
-               stem_time,
-               "direct 7x7/s2 conv + bias + ReLU + 3x3/s2 max pool, the "
-               "conv tile and the pool in shared memory, fp32 CUDA cores"),
+               stem_times[FRAMES],
+               "body tc: the 7x7/s2 conv as an implicit GEMM on mma.sync "
+               "m16n8k16 (bf16 in, fp32 accumulate), K = 7 kernel rows x 22 "
+               "taps (padded to 160) read straight from the staged NHWC halo "
+               "rows through a per-lane tap-offset table (no im2col); one "
+               "persistent block per SM, two 4-warp groups with their own "
+               "8 x 7 pooled tiles taking turns on the tensor cores, the "
+               "next halo in flight by cp.async; ReLU and one bf16 rounding "
+               "into a shared conv tile that the 3x3/s2 max pool reads "
+               "(earlier_ms: body direct, the direct conv on the fp32 CUDA "
+               "cores, kept for fp32)"),
         record("fused_attention_shard_heads", "fused_attention.cu",
                "clipbert_tpu/ops/pallas_attention.py:132", tp_launches,
                shard_err, shard_time, tc + " on a rank's heads")]}))

@@ -18,6 +18,7 @@ slice of the port.
 from __future__ import annotations
 
 import logging
+import threading
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -51,8 +52,10 @@ class BaseDataset:
         self.max_txt_len = max_txt_len
         self.seed = seed
         self.rng = np.random.default_rng(seed)  # init-time / single-thread use
-        # eval items that fell back to black frames (eval_fallback_frames)
+        # eval items that fell back to black frames (eval_fallback_frames);
+        # loader threads count them concurrently, under the lock
         self.n_fallbacks = 0
+        self._fallback_lock = threading.Lock()
 
     def __len__(self):
         return len(self.datalist)
@@ -122,7 +125,8 @@ class BaseDataset:
         LOGGER.warning(
             f"eval video {vid_id!r} failed to decode; substituting "
             f"{n_frames} black frames (its scores will be ~chance)")
-        self.n_fallbacks += 1
+        with self._fallback_lock:
+            self.n_fallbacks += 1
         # device-preprocess items are NATIVE-size: substitute at the collate
         # bucket granularity (64px), never max_img_size — a 448x448 black
         # frame would raise the whole batch's bucket above every real video
