@@ -99,10 +99,34 @@ Phases; any failure raises and the script exits non-zero:
     16-clip and the 1-clip encode (windows tc, direct, direct, tc, direct,
     tc, tc, direct; their grid features on the same frames within
     FEAT_REL) and the bench unit at 8 x 16 and 128 x 1 clips.
+15. (run last) the QA family at full width, each config at its own
+    resolution and text length, with seeded models: VQA's seq_cls over
+    3129 answers (bce), a seq_cls over a seeded 1500-answer vocabulary for
+    frameqa and msrvtt_qa, the multiple-choice head for action. First the
+    kernels at the new shapes, each against its plain version and timed
+    in turns as graph replays beside the library call and the bound:
+    attention at S = 149-169 (the v2 body: past the tensor-core body's
+    S <= 128) and at MSRVTT-MC's eval batch, the stem at 1 and 32 frames
+    of 768^2, the 36 fused 1x1 convs of one 768^2 frame. Then the scorers:
+    VQAScorer on one 480x640 JPEG at 768 px with 1, 5 and 32 questions of
+    text 20; VideoQAScorer on frameqa and action (1 clip x 1 frame at 768
+    px, text 25) and msrvtt_qa (8 clips x 2 frames at 448 px, text 100).
+    Counts from 0: every request launches attention 12 times on the body
+    _plan names, 36 fused 1x1 convs on wg and one stem on tc. The kernel
+    form against the cuDNN + einsum form: probabilities within PROB_ATOL,
+    grid features within FEAT_REL, and at 768 px phase 6's planted faults
+    outside it. Then the runners' own eval loops on seeded stores
+    (run_video_qa.build_validate for action and frameqa and
+    run_msrvtt_mc.inference_mc at 16 clips on phase 7's videos,
+    run_vqa.build_validate on 32 seeded JPEGs): make_eval_step's fused
+    core against its einsum core in turns (k, e, e, k), then the cuDNN +
+    einsum form, whose predictions must equal the kernel form's except
+    where an item's top two lie within PROB_ATOL (counted and printed).
  9. the last two lines: the kernels' JSON record (each kernel's design, and
     the earlier body's time beside it as ``earlier_ms``: attention's v2,
-    matmul_bn_act's mma, the stem's direct), then {"ok": true, "device":
-    {...}}.
+    matmul_bn_act's mma, the stem's direct; phase 15's launches, errors
+    and times at the QA shapes as ``qa_launches``, ``qa_max_abs_err`` and
+    ``qa_shapes``), then {"ok": true, "device": {...}}.
 
 The ranks of phases 10 and 11 share the one card, so their process group
 runs over gloo, passed explicitly (NCCL refuses two ranks on one device):
@@ -132,7 +156,11 @@ from clipbert_tpu_torch.core.config import (ModelConfig, inject_task_attrs,
                                             load_run_config)
 from clipbert_tpu_torch.core.mesh import Mesh, make_mesh
 from clipbert_tpu_torch.data import store, transforms, video
-from clipbert_tpu_torch.data.datasets import VideoRetrievalEvalDataset
+from clipbert_tpu_torch.data.datasets import (MSRVTTMCEvalDataset,
+                                              RetrievalCollator,
+                                              VideoQACollator,
+                                              VideoRetrievalEvalDataset,
+                                              VQADataset, load_jsonl)
 from clipbert_tpu_torch.data.tokenization import BertTokenizer, write_tiny_vocab
 from clipbert_tpu_torch.evaluation import metrics as eval_metrics
 from clipbert_tpu_torch.models import bert, clipbert, resnet
@@ -142,8 +170,10 @@ from clipbert_tpu_torch.ops import fused_stem_pool as fsp
 from clipbert_tpu_torch.ops import matmul_bn_act as mba
 from clipbert_tpu_torch.ops.linear import mm_f32
 from clipbert_tpu_torch.parallel import shard_model
-from clipbert_tpu_torch.serve import RetrievalScorer, _pow2_bucket
-from clipbert_tpu_torch.tasks import common
+from clipbert_tpu_torch.serve import (RetrievalScorer, VideoQAScorer,
+                                      VQAScorer, _pow2_bucket)
+from clipbert_tpu_torch.tasks import (common, run_msrvtt_mc, run_video_qa,
+                                      run_vqa)
 from clipbert_tpu_torch.tasks.run_video_retrieval import inference_retrieval
 from clipbert_tpu_torch.train import steps
 from clipbert_tpu_torch.utils.distributed import spawn_ranks
@@ -451,32 +481,42 @@ def phase_attention(gen):
                          "merged-qkv views", gen, body="v2")
     times = {}
     for B, S, H, dh, what in TIMED:
-        q, k, v, bias = _inputs(B, S, H, dh, torch.bfloat16,
-                                "merged-qkv views", gen)
-        scale = 1.0 / dh ** 0.5
-        iters = 20 if B <= 512 else 5
-        # SDPA with the same additive key mask, on (B, H, S, dh) views
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = bias[:, None, None, :].to(torch.bfloat16)
-        ms = _in_turns(
-            lambda: fa.fused_attention(q, k, v, bias, scale),
-            lambda: fa.fused_attention_reference(q, k, v, bias, scale),
-            iters,
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, mask,
-                                                   scale=scale),
-            lambda: fa._launch(q, k, v, bias, scale, body="v2"), graph=True)
-        nbytes = 4 * B * S * H * dh * 2 + B * S * 4
-        bound = _bound_ms(4 * B * H * S * S * dh, nbytes)
-        times[(B, S, H, dh)] = _timing(ms, bound)
-        print(f"time bf16 {(B, S, H, dh)} {what} (device time, CUDA "
-              f"graph of {iters} calls): tc body "
-              f"{_windows(ms, 'kernel')} ms, v2 body "
-              f"{_windows(ms, 'earlier')} ms, plain {_windows(ms, 'plain')} "
-              f"ms, SDPA {_windows(ms, 'library')} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]})")
-        del q, k, v, bias, qt, kt, vt, mask
+        times[(B, S, H, dh)] = _time_attention(B, S, H, dh, what, gen)
     torch.cuda.empty_cache()
     return bf16_err, times
+
+
+def _time_attention(B, S, H, dh, what, gen):
+    """The kernel on the body _plan names, the plain version and SDPA (and
+    the v2 body forced as the earlier design, where the plan is tc) timed
+    in turns as CUDA graph replays on bf16 merged-QKV views; returns the
+    kernel record's timing keys."""
+    q, k, v, bias = _inputs(B, S, H, dh, torch.bfloat16, "merged-qkv views",
+                            gen)
+    body = fa._plan(B, S, H, dh, torch.bfloat16, True).body
+    scale = 1.0 / dh ** 0.5
+    iters = 20 if B <= 512 else 5
+    # SDPA with the same additive key mask, on (B, H, S, dh) views
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = bias[:, None, None, :].to(torch.bfloat16)
+    ms = _in_turns(
+        lambda: fa.fused_attention(q, k, v, bias, scale),
+        lambda: fa.fused_attention_reference(q, k, v, bias, scale),
+        iters,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, mask,
+                                               scale=scale),
+        (lambda: fa._launch(q, k, v, bias, scale, body="v2"))
+        if body == "tc" else None, graph=True)
+    nbytes = 4 * B * S * H * dh * 2 + B * S * 4
+    bound = _bound_ms(4 * B * H * S * S * dh, nbytes)
+    earlier = (f", v2 body {_windows(ms, 'earlier')} ms" if body == "tc"
+               else "")
+    print(f"time bf16 {(B, S, H, dh)} {what} (device time, CUDA "
+          f"graph of {iters} calls): {body} body "
+          f"{_windows(ms, 'kernel')} ms{earlier}, plain "
+          f"{_windows(ms, 'plain')} ms, SDPA {_windows(ms, 'library')} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]})")
+    return _timing(ms, bound)
 
 
 def _r50_1x1_launches(frames: int, img: int):
@@ -658,27 +698,37 @@ def phase_matmul_bn_act(gen):
           + " / ".join(f"{t:.1f}" for t in host_us["wg"]) + " us, mma "
           + " / ".join(f"{t:.1f}" for t in host_us["mma"]) + " us")
 
-    times, sums = {}, {"kernel": 0.0, "earlier": 0.0, "library": 0.0,
-                       "bound": 0.0}
-    for shape, n_launch in launches.items():
-        B, H, W, K, N, res, stride, relu = shape
-        x, w, _, b, r = _mba_inputs(B, H, W, K, N, res, stride,
-                                    torch.bfloat16, gen)
-        w = w.to(torch.bfloat16)
-        w_nk = w.reshape(N, K)
-        Ho, Wo = H // stride, W // stride
-        R = B * Ho * Wo
-        xs = x[:, ::stride, ::stride].reshape(-1, K)
-        r2 = None if r is None else r.reshape(-1, N)
-        plan = mba._plan(R, K, N, stride, H, W, Wo, torch.bfloat16, True,
-                         mba._n_sms(0))
-        ms = _in_turns(
-            lambda: mba.conv1x1_bn_act(x, w, None, b, stride, r, relu),
-            lambda: mba.matmul_bn_act_reference(xs, w_nk.t(), None, b, r2,
-                                                relu), 10,
-            _mba_library(x, w, b, r, relu, stride),
-            lambda: mba._launch(x, w_nk, None, b, r, relu, (B, H, W), stride,
-                                body="mma"), graph=True)
+    times = {shape: _time_mba(shape, n, gen)
+             for shape, n in launches.items()}
+    sums = _mba_sums(launches, times, f"one {FRAMES}-frame encode")
+    return bf16_err, times, sums
+
+
+def _time_mba(shape, n_launch, gen, variants=True):
+    """The wg body, the plain version and the library (and, with
+    ``variants``, the mma body as the earlier design and wg's other tile
+    widths) timed in turns as CUDA graph replays at one R50 1x1 shape;
+    returns the kernel record's timing keys."""
+    B, H, W, K, N, res, stride, relu = shape
+    x, w, _, b, r = _mba_inputs(B, H, W, K, N, res, stride, torch.bfloat16,
+                                gen)
+    w = w.to(torch.bfloat16)
+    w_nk = w.reshape(N, K)
+    Ho, Wo = H // stride, W // stride
+    R = B * Ho * Wo
+    xs = x[:, ::stride, ::stride].reshape(-1, K)
+    r2 = None if r is None else r.reshape(-1, N)
+    plan = mba._plan(R, K, N, stride, H, W, Wo, torch.bfloat16, True,
+                     mba._n_sms(0))
+    ms = _in_turns(
+        lambda: mba.conv1x1_bn_act(x, w, None, b, stride, r, relu),
+        lambda: mba.matmul_bn_act_reference(xs, w_nk.t(), None, b, r2,
+                                            relu), 10,
+        _mba_library(x, w, b, r, relu, stride),
+        (lambda: mba._launch(x, w_nk, None, b, r, relu, (B, H, W), stride,
+                             body="mma")) if variants else None, graph=True)
+    widths = ""
+    if variants:
         # the other wg tile widths, in turns with the planned one
         others = [t for t in mba.WG_TILE_NS if t != plan.tile_n]
         var = {t: [] for t in [plan.tile_n] + others}
@@ -686,33 +736,46 @@ def phase_matmul_bn_act(gen):
             var[t].append(_time_ms(
                 lambda: mba._launch(x, w_nk, None, b, r, relu, (B, H, W),
                                     stride, tile_n=t), 10, graph=True))
-        nbytes = (R * K + K * N + R * N * (2 if res else 1)) * 2 + N * 4
-        bound = _bound_ms(2 * R * K * N, nbytes)
-        t = times[shape] = _timing(ms, bound)
-        for k in ("kernel", "earlier", "library"):
-            sums[k] += n_launch * t[f"{k}_ms" if k != "kernel" else "ms"]
-        sums["bound"] += n_launch * bound[0]
-        lib = "addmm" if stride == 1 else "cuDNN conv + bias"
-        lib += (" + residual" if res else "") + (" + ReLU" if relu else "")
-        print(f"time bf16 matmul_bn_act R={R} K={K} N={N} residual={res} "
-              f"stride={stride} relu={relu} (x{n_launch} per encode; device "
-              f"time, CUDA graph of 10 calls): wg BN {plan.tile_n} "
-              f"{_windows(ms, 'kernel')} ms "
-              f"({2 * R * K * N / t['ms'] / 1e9:.1f} TFLOP/s, "
-              f"{bound[0] / t['ms']:.1%} of bound), mma "
-              f"{_windows(ms, 'earlier')} ms, plain {_windows(ms, 'plain')} "
-              f"ms, {lib} {_windows(ms, 'library')} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]}); wg tile widths in turns: "
-              + ", ".join(f"BN {tn} " + " / ".join(f"{v:.4f}" for v in vs)
-                          for tn, vs in var.items()) + " ms")
-        del x, w, w_nk, b, r, xs, r2
-        torch.cuda.empty_cache()
-    print(f"matmul_bn_act, one encode's {MBA_PER_ENCODE} launches "
-          f"(launches x ms, summed over the 16 shapes): wg "
-          f"{sums['kernel']:.4f} ms, mma {sums['earlier']:.4f} ms, library "
+        widths = "; wg tile widths in turns: " + ", ".join(
+            f"BN {tn} " + " / ".join(f"{v:.4f}" for v in vs)
+            for tn, vs in var.items()) + " ms"
+    nbytes = (R * K + K * N + R * N * (2 if res else 1)) * 2 + N * 4
+    bound = _bound_ms(2 * R * K * N, nbytes)
+    t = _timing(ms, bound)
+    lib = "addmm" if stride == 1 else "cuDNN conv + bias"
+    lib += (" + residual" if res else "") + (" + ReLU" if relu else "")
+    mma = f", mma {_windows(ms, 'earlier')} ms" if variants else ""
+    print(f"time bf16 matmul_bn_act R={R} K={K} N={N} residual={res} "
+          f"stride={stride} relu={relu} (x{n_launch} per encode; device "
+          f"time, CUDA graph of 10 calls): wg BN {plan.tile_n} "
+          f"{_windows(ms, 'kernel')} ms "
+          f"({2 * R * K * N / t['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{bound[0] / t['ms']:.1%} of bound){mma}, plain "
+          f"{_windows(ms, 'plain')} ms, {lib} {_windows(ms, 'library')} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}){widths}")
+    del x, w, w_nk, b, r, xs, r2
+    torch.cuda.empty_cache()
+    return t
+
+
+def _mba_sums(launches, times, what):
+    """{kernel, earlier, library, bound} ms summed over an encode's
+    launches (launches x ms per shape)."""
+    sums = {"kernel": 0.0, "earlier": 0.0, "library": 0.0, "bound": 0.0}
+    for shape, n_launch in launches.items():
+        t = times[shape]
+        sums["kernel"] += n_launch * t["ms"]
+        sums["library"] += n_launch * t["library_ms"]
+        sums["bound"] += n_launch * t["bound_ms"]
+        if t["earlier_ms"] is not None:
+            sums["earlier"] += n_launch * t["earlier_ms"]
+    earlier = (f", mma {sums['earlier']:.4f} ms" if sums["earlier"] else "")
+    print(f"matmul_bn_act, {what}'s {sum(launches.values())} launches "
+          f"(launches x ms, summed over the {len(launches)} shapes): wg "
+          f"{sums['kernel']:.4f} ms{earlier}, library "
           f"{sums['library']:.4f} ms, bound {sums['bound']:.4f} ms "
           f"(wg at {sums['bound'] / sums['kernel']:.1%} of it)")
-    return bf16_err, times, sums
+    return sums
 
 
 def _stem_inputs(B, H, W, dtype, gen):
@@ -770,35 +833,43 @@ def phase_stem(gen):
                 if body is None and ran != "tc":
                     raise AssertionError(f"bf16 stem {(B, H, W)} ran body "
                                          f"{ran}, not tc")
-    times = {}
-    for B in (FRAMES, 2):
-        x, w, b = _stem_inputs(B, 448, 448, torch.bfloat16, gen)
-        xc = x.permute(0, 3, 1, 2)                    # channels_last view
-        wc = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        b16 = b.to(torch.bfloat16)[None, :, None, None]
-        iters = 10 if B == FRAMES else 40
-        ms = _in_turns(
-            lambda: fsp.fused_stem_pool(x, w, b),
-            lambda: fsp.fused_stem_pool_reference(x, w, b), iters,
-            lambda: F.max_pool2d(torch.relu(F.conv2d(xc, wc, None, 2, 3)
-                                            + b16), 3, 2, 1),
-            lambda: fsp._launch(x, w, b, body="direct"), graph=True)
-        nbytes = (B * 448 * 448 * 3 + B * 112 * 112 * 64) * 2 + \
-            64 * 147 * 4 + 64 * 4
-        flops = 2 * B * 224 * 224 * 64 * 147
-        bound = _bound_ms(flops, nbytes)
-        t = times[B] = _timing(ms, bound)
-        print(f"time bf16 fused_stem_pool {(B, 448, 448)} (device time, CUDA "
-              f"graph of {iters} calls): tc {_windows(ms, 'kernel')} ms "
-              f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
-              f"{bound[0] / t['ms']:.1%} of bound), direct "
-              f"{_windows(ms, 'earlier')} ms, plain {_windows(ms, 'plain')} "
-              f"ms, cuDNN conv+bias+relu+max_pool2d "
-              f"{_windows(ms, 'library')} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]})")
-        del x, w, b, xc, wc, b16
-        torch.cuda.empty_cache()
+    times = {B: _time_stem(B, 448, 448, gen) for B in (FRAMES, 2)}
     return bf16_err, times
+
+
+def _time_stem(B, H, W, gen, earlier=True):
+    """tc, the plain version and cuDNN's conv + bias + ReLU + max_pool2d
+    (and direct as the earlier design) timed in turns as CUDA graph
+    replays at (B, H, W); returns the kernel record's timing keys."""
+    x, w, b = _stem_inputs(B, H, W, torch.bfloat16, gen)
+    xc = x.permute(0, 3, 1, 2)                        # channels_last view
+    wc = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b16 = b.to(torch.bfloat16)[None, :, None, None]
+    iters = 10 if B * H * W >= FRAMES * 448 * 448 else 40
+    ms = _in_turns(
+        lambda: fsp.fused_stem_pool(x, w, b),
+        lambda: fsp.fused_stem_pool_reference(x, w, b), iters,
+        lambda: F.max_pool2d(torch.relu(F.conv2d(xc, wc, None, 2, 3) + b16),
+                             3, 2, 1),
+        (lambda: fsp._launch(x, w, b, body="direct")) if earlier else None,
+        graph=True)
+    Hc, Wc = (H + 1) // 2, (W + 1) // 2               # conv output
+    Hp, Wp = (Hc + 1) // 2, (Wc + 1) // 2             # pooled output
+    nbytes = (B * H * W * 3 + B * Hp * Wp * 64) * 2 + 64 * 147 * 4 + 64 * 4
+    flops = 2 * B * Hc * Wc * 64 * 147
+    bound = _bound_ms(flops, nbytes)
+    t = _timing(ms, bound)
+    direct = f", direct {_windows(ms, 'earlier')} ms" if earlier else ""
+    print(f"time bf16 fused_stem_pool {(B, H, W)} (device time, CUDA "
+          f"graph of {iters} calls): tc {_windows(ms, 'kernel')} ms "
+          f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{bound[0] / t['ms']:.1%} of bound){direct}, plain "
+          f"{_windows(ms, 'plain')} ms, cuDNN conv+bias+relu+max_pool2d "
+          f"{_windows(ms, 'library')} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]})")
+    del x, w, b, xc, wc, b16
+    torch.cuda.empty_cache()
+    return t
 
 
 @contextlib.contextmanager
@@ -1773,6 +1844,432 @@ def phase_stem_bodies(model, cfg, tok):
                     ("tc", "direct"))
 
 
+# ---- phase 15: the QA family at full width --------------------------------
+
+QA_VQA_LABELS = 3129     # configs/vqa_base_resnet50.json
+QA_OPEN_LABELS = 1500    # the open-ended video-QA tasks' seeded vocabulary
+QA_IMAGES = 32
+# The joint sequences at each QA config's own width (B, S, H, dh, what):
+# S = max_txt_len + (max_img_size / 64)^2 grid tokens. All but MSRVTT-MC
+# run past the tensor-core body's S <= 128 (fa.TC_MAX_SEQ), on v2.
+QA_ATTN_SHAPES = [
+    (32, 20 + 144, 12, 64, "VQA: 32 questions at 768 px, text 20"),
+    (32, 25 + 144, 12, 64, "TGIF frameqa: 32 questions at 768 px, text 25"),
+    (5, 25 + 144, 12, 64, "TGIF action: 5 options at 768 px, text 25"),
+    (256, 100 + 49, 12, 64, "MSRVTT-QA: 8 clips x 32 questions at 448 px, "
+     "text 100"),
+    (16 * 5 * 16, 20 + 49, 12, 64, "MSRVTT-MC eval batch: 16 videos x 5 "
+     "options x 16 clips")]
+QA_STEM_FRAMES = (1, 32)             # frames of 768^2
+# (scorer, model, task, scorer settings): each config's resolution, text
+# length, frames and clips (configs/*_base_resnet50.json)
+QA_SCORERS = (
+    ("VQA", "vqa", "vqa", dict(max_img_size=768, max_txt_len=20)),
+    ("TGIF frameqa", "open", "frameqa",
+     dict(num_frm=1, n_clips=1, fps=1, max_img_size=768, max_txt_len=25,
+          score_agg_func="mean")),
+    ("TGIF action", "mc", "action",
+     dict(num_frm=1, n_clips=1, fps=1, max_img_size=768, max_txt_len=25,
+          score_agg_func="mean")),
+    ("MSRVTT-QA", "open", "msrvtt_qa",
+     dict(num_frm=2, n_clips=8, fps=2, max_img_size=448, max_txt_len=100,
+          score_agg_func="lse")))
+
+
+def _qa_models(cfg):
+    """{name: (model, config)}: one seeded full-width model per QA head,
+    frozen BN folded: VQA's seq_cls over 3129 answers (bce), the open
+    video-QA seq_cls over 1500 (ce) and the multiple-choice head."""
+    out = {}
+    for name, head, n, loss, seed in (
+            ("vqa", "seq_cls", QA_VQA_LABELS, "bce", 15),
+            ("open", "seq_cls", QA_OPEN_LABELS, "ce", 16),
+            ("mc", "multi_choice", 5, "ce", 17)):
+        mcfg = cfg.replace(num_labels=n, loss_type=loss)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        model = clipbert.init_clipbert(mcfg, head, generator=gen,
+                                       device="cuda")
+        clipbert.fold_cnn_bn_scales(model)
+        out[name] = (model.eval().requires_grad_(False), mcfg)
+    return out
+
+
+def _seq_len(txt_len, img):
+    return txt_len + (img // 64) ** 2
+
+
+def _attn_body(S):
+    return fa._plan(1, S, 12, 64, torch.bfloat16, True).body
+
+
+def _expect_qa(what, d, S, calls, encodes):
+    """Launch deltas of ``calls`` scoring calls at joint length S and
+    ``encodes`` CNN encodes: 12 attention launches a call on the body
+    _plan names, 36 fused 1x1 convs on wg and one stem on tc an encode."""
+    body = _attn_body(S)
+    _expect(f"{what}, attention", d[0], 12 * calls)
+    _expect(f"{what}, attention on the tensor-core body", d[3],
+            12 * calls if body == "tc" else 0)
+    _expect(f"{what}, matmul_bn_act", d[1], MBA_PER_ENCODE * encodes)
+    _expect(f"{what}, matmul_bn_act on the wgmma body", d[4],
+            MBA_PER_ENCODE * encodes)
+    _expect(f"{what}, fused_stem_pool", d[2], encodes)
+    _expect(f"{what}, fused_stem_pool on the tensor-core body", d[5],
+            encodes)
+    return body
+
+
+def phase_qa_kernels(gen):
+    """Phase 15, the kernels at the QA family's shapes: each against its
+    plain version, then timed in turns as graph replays beside the library
+    call and the bound. Returns ({kernel: {shape: timing}}, the worst bf16
+    error of each)."""
+    times = {"fused_attention": {}, "matmul_bn_act": {},
+             "fused_stem_pool": {}}
+    err = dict.fromkeys(times, 0.0)
+    for B, S, H, dh, what in QA_ATTN_SHAPES:
+        err["fused_attention"] = max(err["fused_attention"], _attention_check(
+            B, S, H, dh, what, torch.bfloat16, "merged-qkv views", gen))
+        times["fused_attention"][str((B, S, H, dh))] = dict(
+            _time_attention(B, S, H, dh, what, gen), body=_attn_body(S),
+            launches_per_call=12)
+    for B in QA_STEM_FRAMES:
+        e, body = _stem_check(B, 768, 768, torch.bfloat16, gen)
+        if body != "tc":
+            raise AssertionError(f"bf16 stem {(B, 768, 768)} ran {body}")
+        err["fused_stem_pool"] = max(err["fused_stem_pool"], e)
+        times["fused_stem_pool"][str((B, 768, 768))] = dict(
+            _time_stem(B, 768, 768, gen, earlier=False), launches_per_call=1)
+    launches = _r50_1x1_launches(1, 768)
+    per = {}
+    for shape, n in launches.items():
+        e, body = _mba_check(*shape, torch.bfloat16, gen)
+        if body != "wg":
+            raise AssertionError(f"R50 shape {shape} at 768 px ran {body}")
+        err["matmul_bn_act"] = max(err["matmul_bn_act"], e)
+        per[shape] = _time_mba(shape, n, gen, variants=False)
+    sums = _mba_sums(launches, per, "one 768 px frame's encode")
+    times["matmul_bn_act"]["36-launch sum, 1 x 768^2"] = {
+        "ms": sums["kernel"], "plain_ms": sum(
+            n * per[s]["plain_ms"] for s, n in launches.items()),
+        "library_ms": sums["library"], "bound_ms": sums["bound"],
+        "launches_per_call": MBA_PER_ENCODE}
+    return times, err
+
+
+def _jpeg(rng, h, w):
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+        buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def _qa_request(sc, task, frames, qs, n):
+    """One request (encode + one scoring call) on scorer ``sc``; returns
+    (encode s, request s, probabilities)."""
+    t0 = time.perf_counter()
+    feats = (sc.encode_image(frames) if task == "vqa"
+             else sc.encode_frames(frames))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if task == "action":
+        probs = sc.answer_mc(None, qs[0], qs[1:6], features=feats)
+    else:
+        probs = sc.probs(None, qs[:n], features=feats)
+    return t1 - t0, time.perf_counter() - t0, probs
+
+
+def phase_qa_scorers(models, tok):
+    """Phase 15, the scorers at each config's width: VQAScorer on one
+    480x640 JPEG at 768 px with 1, 5 and 32 questions; VideoQAScorer on
+    frameqa and action (1 clip x 1 frame at 768 px, text 25) and
+    msrvtt_qa (8 clips x 2 frames at 448 px, text 100). Counts from 0 per
+    request; the kernel form against the cuDNN + einsum form. Returns the
+    launches of the main path."""
+    rng = np.random.default_rng(15)
+    qs = _captions(rng, 33)
+    launches = [0] * 6
+    for what, key, task, kw in QA_SCORERS:
+        model, mcfg = models[key]
+        S = _seq_len(kw["max_txt_len"], kw["max_img_size"])
+        forms = {}
+        for form in ("kernels", "cudnn"):
+            fk = dict(device="cuda", compute_dtype=torch.bfloat16,
+                      use_kernels=form == "kernels",
+                      fused_attn=None if form == "kernels" else False)
+            if task == "vqa":
+                forms[form] = VQAScorer(
+                    model, mcfg, tok, {i: f"ans{i}" for i in
+                                       range(QA_VQA_LABELS)},
+                    max_questions=32, **kw, **fk)
+            else:
+                forms[form] = VideoQAScorer(
+                    model, mcfg, tok, task, max_questions=32,
+                    label2ans={i: f"ans{i}" for i in range(QA_OPEN_LABELS)},
+                    **kw, **fk)
+        if task == "vqa":
+            frames = _jpeg(rng, 480, 640)
+        else:
+            frames = rng.integers(0, 256, (kw["n_clips"] * kw["num_frm"],
+                                           240, 320, 3), np.uint8)
+        t0 = time.perf_counter()
+        for sc in forms.values():
+            sc.warmup(((480, 640),) if task == "vqa" else ((240, 320),))
+        torch.cuda.synchronize()
+        print(f"{what}: warmup of both forms {time.perf_counter() - t0:.2f}"
+              " s")
+        sizes = (5,) if task == "action" else REQUEST_SIZES
+
+        # ---- the main path: counts from 0, read right after ----------
+        _reset_counts()
+        enc, req = [], {n: [] for n in sizes}
+        for _ in range(REPEATS):
+            for n in sizes:
+                before = _counts()
+                te, tr, probs = _qa_request(forms["kernels"], task, frames,
+                                            qs, n)
+                enc.append(te)
+                req[n].append(tr)
+                d = [a - b for a, b in zip(_counts(), before)]
+                body = _expect_qa(f"{what} request", d, S, 1, 1)
+                want = ((5,) if task == "action" else
+                        (n, QA_VQA_LABELS if task == "vqa"
+                         else QA_OPEN_LABELS))
+                if probs.shape != want or not np.isfinite(probs).all() or \
+                        not ((probs >= 0) & (probs <= 1)).all():
+                    raise AssertionError(f"{what}: bad probabilities "
+                                         f"{probs.shape}")
+        got = _counts()
+        launches = [a + b for a, b in zip(launches, got)]
+        print(f"{what} (S = {S}, attention body {body}): "
+              f"{REPEATS * len(sizes)} requests launched attention "
+              f"{got[0]} ({got[3]} on tc), matmul_bn_act {got[1]} ({got[4]} "
+              f"on wg), fused_stem_pool {got[2]} ({got[5]} on tc) times; "
+              f"p50 encode {np.median(enc) * 1e3:.2f} ms, p50 request "
+              + ", ".join(f"{n} question(s) {np.median(req[n]) * 1e3:.2f} ms"
+                          for n in sizes))
+
+        # ---- the kernel form against the cuDNN + einsum form -------------
+        probs = {f: _qa_request(sc, task, frames, qs, 5)[2]
+                 for f, sc in forms.items()}
+        err = float(np.abs(probs["kernels"] - probs["cudnn"]).max())
+        print(f"{what}, 5 questions: probabilities, kernel form vs cuDNN + "
+              f"einsum form: max_abs_diff {err:.3e} (PROB_ATOL {PROB_ATOL})")
+        if err > PROB_ATOL:
+            raise AssertionError(f"{what}: the forms' probabilities differ "
+                                 f"by {err} > {PROB_ATOL}")
+
+        def encode(form, sc=forms, task=task, frames=frames):
+            return (sc[form].encode_image(frames) if task == "vqa"
+                    else sc[form].encode_frames(frames))
+
+        def score(feats, sc=forms["kernels"], task=task):
+            if task == "action":
+                return sc.answer_mc(None, qs[0], qs[1:6], features=feats)
+            return sc.probs(None, qs[:5], features=feats)
+
+        if kw["max_img_size"] == 768:
+            _check_cnn_forms(f"{what} at 768 px", model, encode, score)
+        else:
+            gap = _rel_gap(encode("kernels"), encode("cudnn"))
+            print(f"{what}: grid features, kernel form vs cuDNN form: "
+                  f"relative gap {gap:.3e} (bound {FEAT_REL})")
+            if not gap <= FEAT_REL:
+                raise AssertionError(f"{what}: the CNN's forms' grid "
+                                     f"features differ by {gap}")
+        del forms
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _qa_annotations(d, rng, vid_ids):
+    """Seeded annotations for the runners: TGIF action and frameqa on the
+    videos, VQA on QA_IMAGES images, MSRVTT-MC on the videos."""
+    types = ["object", "number", "color", "location"]
+    vqa_types = ["yes/no", "number", "other"]
+    ann = {
+        "action": [{"vid_id": v, "question": _captions(rng, 1)[0],
+                    "question_id": 1000 + i, "answer": int(rng.integers(5)),
+                    "options": _captions(rng, 5)}
+                   for i, v in enumerate(vid_ids)],
+        "frameqa": [{"vid_id": v, "question": _captions(rng, 1)[0],
+                     "question_id": 2000 + i,
+                     "answer": f"ans{rng.integers(QA_OPEN_LABELS)}",
+                     "answer_type": types[i % 4]}
+                    for i, v in enumerate(vid_ids)],
+        "vqa": [{"question_id": 3000 + i, "txt": _captions(rng, 1)[0],
+                 "img_id": f"image{i}",
+                 "labels": {f"ans{rng.integers(QA_VQA_LABELS)}": 1.0,
+                            f"ans{rng.integers(QA_VQA_LABELS)}": 0.3},
+                 "answer_type": vqa_types[i % 3]}
+                for i in range(QA_IMAGES)],
+        "mc": [{"id": i, "vid_id": v, "answer": int(rng.integers(5)),
+                "options": _captions(rng, 5)}
+               for i, v in enumerate(vid_ids)]}
+    paths = {}
+    for name, rows in ann.items():
+        paths[name] = os.path.join(d, f"qa_{name}.jsonl")
+        with open(paths[name], "w") as f:
+            f.write("".join(json.dumps(r) + "\n" for r in rows))
+    return paths
+
+
+def _decisions(task, logits):
+    """(predictions, the gap between each item's top two) of a run's
+    concatenated eval logits, as its runner decides: the argmax logit, or
+    for MSRVTT-MC the option of highest positive probability."""
+    x = logits.astype(np.float64)
+    if task == "mc":
+        e = np.exp(x - x.max(-1, keepdims=True))
+        x = (e / e.sum(-1, keepdims=True))[:, 1].reshape(-1, 5)
+    top2 = np.sort(x, axis=-1)[:, -2:]
+    return x.argmax(-1), top2[:, 1] - top2[:, 0]
+
+
+def phase_qa_runners(models, model, model_cfg, tok, d, path):
+    """Phase 15, the runners' own eval loops with the seeded models:
+    run_video_qa.build_validate (action, frameqa) and
+    run_msrvtt_mc.inference_mc (16 clips) on phase 7's 16 videos, and
+    run_vqa.build_validate on QA_IMAGES seeded 480x640 JPEGs. After a warm
+    run, each runs with make_eval_step's fused core and its einsum core in
+    turns (k, e, e, k), then in the cuDNN + einsum form, whose predictions
+    must equal the kernel form's except where an item's top two lie
+    within PROB_ATOL. Returns the launches of the main path (the first
+    timed k run)."""
+    rng = np.random.default_rng(16)
+    img_path = os.path.join(d, "images.cbpk")
+    with store.PackWriter(img_path) as w:
+        for i in range(QA_IMAGES):
+            w.put(f"image{i}", _jpeg(rng, 480, 640))
+    ann = _qa_annotations(d, rng, [f"video{i}" for i in range(EVAL_VIDEOS)])
+    ans2label = {f"ans{i}": i for i in range(QA_OPEN_LABELS)}
+    vqa_a2l = {f"ans{i}": i for i in range(QA_VQA_LABELS)}
+    launches = [0] * 6
+    for task, config in (("action", "tgif_qa_action"),
+                         ("frameqa", "tgif_qa_frameqa"),
+                         ("vqa", "vqa"), ("mc", "msrvtt_ret")):
+        cfg = load_run_config(["--config", os.path.join(
+            ROOT, "configs", f"{config}_base_resnet50.json")])
+        if task == "mc":
+            cfg.num_labels = 2
+            net, mcfg = model, model_cfg
+        elif task == "vqa":
+            cfg.num_labels = QA_VQA_LABELS
+            net, mcfg = models["vqa"]
+        else:
+            cfg = run_video_qa.derive_task_attrs(
+                cfg, ans2label if task == "frameqa" else None)
+            net, mcfg = models["mc" if task == "action" else "open"]
+        st = store.open_store(img_path if task == "vqa" else path)
+        if task == "vqa":
+            groups = run_vqa.build_datalist([ann["vqa"]], 1.0, False, 1)
+            ds = VQADataset(groups, tok, st, ans2label=vqa_a2l,
+                            max_img_size=cfg.max_img_size,
+                            max_txt_len=cfg.max_txt_len,
+                            device_preprocess=cfg.device_preprocess)
+            ts = run_vqa.make_task_settings(cfg, is_train=False)
+            coll = RetrievalCollator(tok, cfg.max_txt_len)
+        elif task == "mc":
+            ds = MSRVTTMCEvalDataset(
+                load_jsonl(ann["mc"]), tok, st,
+                fps=cfg.fps, num_frm=cfg.num_frm,
+                max_img_size=cfg.max_img_size, max_txt_len=cfg.max_txt_len,
+                ensemble_n_clips=cfg.inference_n_clips,
+                device_preprocess=cfg.device_preprocess)
+            ts = steps.TaskSettings(
+                head_type="retrieval", num_labels=2, loss_type=cfg.loss_type,
+                score_agg_func=cfg.score_agg_func,
+                train_n_clips=cfg.inference_n_clips,
+                group_size=run_msrvtt_mc.N_OPTIONS)
+        else:
+            ds = run_video_qa.build_dataset(
+                cfg, run_video_qa.build_groups(cfg, ann[task], False), tok,
+                st, ans2label if task == "frameqa" else None, False,
+                cfg.inference_n_clips)
+            ts = run_video_qa.make_task_settings(cfg, cfg.inference_n_clips)
+            coll = VideoQACollator(tok, cfg.max_txt_len)
+        if task != "mc":
+            dl = common.build_eval_loader(ds, coll, cfg,
+                                          cfg.inference_batch_size)
+            validate = (run_vqa if task == "vqa" else run_video_qa
+                        ).build_validate(cfg, ds, dl, torch.bfloat16)
+        S = _seq_len(cfg.max_txt_len, cfg.max_img_size)
+        n_items = len(ds)
+        n_batches = -(-n_items // cfg.inference_batch_size)
+
+        def run(form):
+            kept = []
+            step = steps.make_eval_step(
+                mcfg, ts, torch.bfloat16,
+                fused_attn=None if form == "k" else False,
+                use_kernels=form != "r")
+
+            def eval_fn(m, batch):
+                out = step(m, batch)
+                kept.append(out["logits"])
+                return out
+
+            t0 = time.perf_counter()
+            if task == "mc":
+                m = run_msrvtt_mc.inference_mc(cfg, mcfg, net, ds,
+                                               torch.bfloat16, eval_fn)
+            else:
+                m = validate(net, eval_fn)
+            wall = time.perf_counter() - t0
+            return m, torch.cat(kept).float().cpu().numpy(), wall
+
+        run("k")        # warm: cuDNN's algorithm choice at these shapes
+        walls = {"k": [], "e": []}
+        runs = {}
+        for i, form in enumerate(("k", "e", "e", "k", "r")):
+            if i == 0:
+                # ---- the main path: counts from 0, read right after ----
+                _reset_counts()
+            before = _counts()
+            runs[form] = run(form)
+            delta = [a - b for a, b in zip(_counts(), before)]
+            if i == 0:
+                _expect_qa(f"{task} eval", delta, S, n_batches, n_batches)
+                launches = [a + b for a, b in zip(launches, delta)]
+            elif form == "e":
+                _expect(f"{task} eval, einsum core, attention", delta[0], 0)
+                _expect(f"{task} eval, einsum core, matmul_bn_act", delta[1],
+                        MBA_PER_ENCODE * n_batches)
+            elif form == "r":
+                _expect(f"{task} eval, cuDNN + einsum form", sum(delta), 0)
+            if form in walls:
+                walls[form].append(runs[form][2])
+        metrics = {k: v for k, v in runs["k"][0].items()
+                   if k not in ("results", "preds")}
+        pk, gap = _decisions(task, runs["k"][1])
+        pr, _ = _decisions(task, runs["r"][1])
+        differ = np.flatnonzero(pk != pr)
+        near = int((gap <= PROB_ATOL).sum())
+        print(f"{task} eval ({n_items} items, {n_batches} batch(es), S = {S}, "
+              f"attention body {_attn_body(S)}): metrics {json.dumps(metrics)}"
+              f"; eval wall in turns, fused core "
+              + " / ".join(f"{t:.3f}" for t in walls["k"]) + " s, einsum core "
+              + " / ".join(f"{t:.3f}" for t in walls["e"]) + " s, cuDNN + "
+              f"einsum form {runs['r'][2]:.3f} s; predictions kernel form vs "
+              f"cuDNN + einsum form: {len(differ)} differ, {near} items with "
+              f"their top two within PROB_ATOL; logits max_abs_diff "
+              f"{np.abs(runs['k'][1] - runs['r'][1]).max():.3e}")
+        if (gap[differ] > PROB_ATOL).any():
+            raise AssertionError(f"{task} eval: predictions {differ} differ "
+                                 f"between the forms with top-two gaps "
+                                 f"{gap[differ]} > {PROB_ATOL}")
+        answered = runs["k"][0]["preds" if task == "mc" else "results"]
+        if len(answered) != n_items:
+            raise AssertionError(f"{task} eval: {len(answered)} of "
+                                 f"{n_items} items answered")
+        if ds.n_fallbacks:
+            raise AssertionError(f"{task} eval: {ds.n_fallbacks} visuals did "
+                                 f"not decode")
+    return launches
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1803,12 +2300,33 @@ def main() -> None:
         phase_bodies(model, model_cfg, tok, run_cfg, path, rows, matrix)
         phase_stem_bodies(model, model_cfg, tok)
         phase_cnn_bodies(model, model_cfg, tok, run_cfg, path, rows, matrix)
+        torch.cuda.empty_cache()
+        t15 = time.perf_counter()
+        qa_times, qa_err = phase_qa_kernels(gen)
+        qa_models = _qa_models(model_cfg)
+        qa_launches = phase_qa_scorers(qa_models, tok)
+        qa_launches = [a + b for a, b in zip(qa_launches, phase_qa_runners(
+            qa_models, model, model_cfg, tok, d, path))]
+        print(f"phase 15: {time.perf_counter() - t15:.1f} s; the QA "
+              f"family's scorers and runners launched attention "
+              f"{qa_launches[0]} ({qa_launches[3]} on tc), matmul_bn_act "
+              f"{qa_launches[1]} ({qa_launches[4]} on wg) and "
+              f"fused_stem_pool {qa_launches[2]} ({qa_launches[5]} on tc) "
+              "times")
 
-    def record(name, source, replaces, n, err, t, design):
-        return {"name": name, "route": "cuda",
-                "source": f"clipbert_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": n, "max_abs_err": err,
-                **t, "design": design}
+    def record(name, source, replaces, n, err, t, design, qa=None):
+        out = {"name": name, "route": "cuda",
+               "source": f"clipbert_tpu_torch/csrc/{source}",
+               "replaces": replaces, "launches": n, "max_abs_err": err,
+               **t, "design": design}
+        if qa is not None:
+            # phase 15: launches on the QA family's main paths, the worst
+            # bf16 error and the times at its shapes
+            i = ("fused_attention", "matmul_bn_act",
+                 "fused_stem_pool").index(name)
+            out.update(qa_launches=qa_launches[i], qa_max_abs_err=qa_err[name],
+                       qa_shapes=qa_times[name])
+        return out
 
     tc = ("body tc: QK^T and PV on mma.sync m16n8k16 (bf16 in, fp32 "
           "accumulate), exact full-row fp32 softmax in registers, P packed "
@@ -1819,7 +2337,7 @@ def main() -> None:
     print(json.dumps({"kernels": [
         record("fused_attention", "fused_attention.cu",
                "clipbert_tpu/ops/pallas_attention.py:73", launches[0],
-               attn_err, attn_times[(512, 69, 12, 64)], tc),
+               attn_err, attn_times[(512, 69, 12, 64)], tc, qa=True),
         record("matmul_bn_act", "matmul_bn_act.cu",
                "clipbert_tpu/ops/pallas_kernels.py:65", launches[1], mba_err,
                mba_times[(FRAMES, 112, 112, 64, 256, True, 1, True)],
@@ -1831,7 +2349,7 @@ def main() -> None:
                "accumulators, the residual in and the output out by TMA "
                "through a ring of 128 x 64 shared-memory slots (earlier_ms: "
                "body mma, 128 x 128 tiles on mma.sync m16n8k16, kept for "
-               "fp32 and operands TMA cannot describe)"),
+               "fp32 and operands TMA cannot describe)", qa=True),
         record("fused_stem_pool", "fused_stem_pool.cu",
                "clipbert_tpu/ops/pallas_stem.py:196", launches[2], stem_err,
                stem_times[FRAMES],
@@ -1844,7 +2362,7 @@ def main() -> None:
                "next halo in flight by cp.async; ReLU and one bf16 rounding "
                "into a shared conv tile that the 3x3/s2 max pool reads "
                "(earlier_ms: body direct, the direct conv on the fp32 CUDA "
-               "cores, kept for fp32)"),
+               "cores, kept for fp32)", qa=True),
         record("fused_attention_shard_heads", "fused_attention.cu",
                "clipbert_tpu/ops/pallas_attention.py:132", tp_launches,
                shard_err, shard_time, tc + " on a rank's heads")]}))

@@ -13,7 +13,14 @@ a few layout rules:
  - the stacked encoder leaves (L, ...) -> ``encoder.layers.{i}``;
  - frozen BN ``bn/{scale, bias}`` -> the FrozenBN buffers. A folded JAX
    tree (clipbert_tpu/models/resnet.py::fold_bn_scales) has no ``scale``;
-   the matching port BN is then folded too (``scale`` None).
+   the matching port BN is then folded too (``scale`` None);
+ - the heads keep their leaf names: ``classifier/{fc1, fc2}``,
+   ``regressor/{fc1, fc2}`` and ``regressor/bn/{scale, bias, mean, var}``
+   (parameters and running-statistics buffers of the same names), and
+   ``cls/predictions/{transform/..., bias}`` and
+   ``cls/seq_relationship``. The MLM decoder is the word-embedding table
+   itself (models/clipbert.py::Transformer.mlm_decoder_weight): it has no
+   leaf of its own.
 
 The JAX tree's stem already takes RGB: the reference checkpoints' BGR flip
 happens when the JAX package imports them (clipbert_tpu/ckpt/

@@ -1,7 +1,7 @@
 """Device resize + pad + normalize (port of the device half of
 clipbert_tpu/data/transforms.py), and copies of its host numpy helpers
 (``resize_frames``, ``pad_frames``, ``is_extreme_aspect_ratio``,
-``collate_visual``).
+``collate_visual``, ``chunk_list``, ``mk_input_group``).
 
 Reference contracts: resize the longer side to max_size, bilinear with
 align_corners=False (`data_utils.py:230-233`, get_resize_size :166-197 with
@@ -17,6 +17,7 @@ Native-size uint8 frames cross to the device, not 448^2 floats.
 
 from __future__ import annotations
 
+import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -102,6 +103,48 @@ def collate_visual(batch: List[Dict]) -> Tuple[np.ndarray,
         assert v.shape[0] == T, "clip count must be uniform within a batch"
         buf[i, :, :v.shape[1], :v.shape[2]] = v
     return buf, hw
+
+
+# ---------------------------------------------------------------------------
+# example grouping
+# ---------------------------------------------------------------------------
+
+def chunk_list(examples: List, chunk_size: int = 2,
+               pad_to_divisible: bool = True,
+               rng: Optional[random.Random] = None) -> List[List]:
+    """data_utils.py:279-304: split into chunks, optionally padding the tail
+    with random repeats so every chunk has exactly chunk_size items."""
+    examples = list(examples)
+    n = len(examples)
+    remainder = n % chunk_size
+    if pad_to_divisible and remainder > 0:
+        picker = rng if rng is not None else random
+        examples = examples + picker.choices(examples, k=chunk_size - remainder)
+        n = len(examples)
+        remainder = 0
+    n_chunks = n // chunk_size + (1 if remainder > 0 else 0)
+    return [examples[i * chunk_size:(i + 1) * chunk_size]
+            for i in range(n_chunks)]
+
+
+def mk_input_group(key_grouped_examples: Dict, max_n_example_per_group: int = 2,
+                   is_train: bool = True,
+                   example_unique_key: Optional[str] = None,
+                   rng: Optional[random.Random] = None) -> List[Tuple]:
+    """data_utils.py:307-341: (id, [examples]) groups of at most
+    max_n_example_per_group texts per visual; train groups padded to exactly
+    that size. With example_unique_key, asserts no example was dropped."""
+    input_groups = []
+    for k, examples in key_grouped_examples.items():
+        for c in chunk_list(examples, max_n_example_per_group,
+                            pad_to_divisible=is_train, rng=rng):
+            input_groups.append((k, c))
+    if example_unique_key is not None:
+        inp = {e[example_unique_key]
+               for exs in key_grouped_examples.values() for e in exs}
+        out = {e[example_unique_key] for _, exs in input_groups for e in exs}
+        assert inp == out, "example grouping dropped examples"
+    return input_groups
 
 
 def _normalize(x: torch.Tensor, mean: Sequence[float],

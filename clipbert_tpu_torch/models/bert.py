@@ -1,4 +1,5 @@
-"""BERT encoder stack (port of clipbert_tpu/models/bert.py, inference path).
+"""BERT encoder stack and pretraining heads (port of
+clipbert_tpu/models/bert.py, inference path).
 
 Post-LN transformer (reference vendored HF-2.11 BERT,
 `src/modeling/transformers.py`): softmax(QK^T/sqrt(d)+mask)V attention,
@@ -23,7 +24,7 @@ from clipbert_tpu_torch.core.mesh import Mesh
 from clipbert_tpu_torch.ops.activations import ACT2FN
 from clipbert_tpu_torch.ops.attention import SelfAttention, multi_head_attention
 from clipbert_tpu_torch.ops.layernorm import layer_norm
-from clipbert_tpu_torch.ops.linear import dense_row_parallel, linear
+from clipbert_tpu_torch.ops.linear import dense_row_parallel, linear, mm_f32
 
 
 class TextEmbeddings(nn.Module):
@@ -76,6 +77,29 @@ class Pooler(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+
+class _LMPrediction(nn.Module):
+    """MLM transform + the decoder's bias (reference BertLMPredictionHead,
+    transformers.py:497-515). The decoder weight is the word-embedding
+    table, which :func:`mlm_logits` is given: the head holds no copy."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        D = cfg.hidden_size
+        self.transform = _DenseLN(D, D)
+        self.bias = nn.Parameter(torch.empty(cfg.vocab_size))
+
+
+class PretrainingHeads(nn.Module):
+    """MLM transform + tied-decoder bias + ITM/NSP linear (port of
+    init_pretraining_heads; reference BertPreTrainingHeads,
+    transformers.py:538-547)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.predictions = _LMPrediction(cfg)
+        self.seq_relationship = nn.Linear(cfg.hidden_size, 2)
 
 
 def text_embeddings(p: TextEmbeddings, input_ids: torch.Tensor,
@@ -137,3 +161,24 @@ def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
 def pooler(p: Pooler, hidden: torch.Tensor) -> torch.Tensor:
     """tanh(W * h[CLS]) (reference BertPooler, transformers.py:464-476)."""
     return torch.tanh(linear(hidden[:, 0], p.dense))
+
+
+def mlm_logits(heads: PretrainingHeads, word_embeddings: torch.Tensor,
+               hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """MLM prediction scores with the decoder weight tied to the input
+    embedding matrix (reference BertLMPredictionHead,
+    transformers.py:497-515): GELU(dense) and LayerNorm in the compute
+    dtype, then the vocab-wide product with an fp32 result plus the fp32
+    bias, as the JAX package computes it (``preferred_element_type``)."""
+    t = heads.predictions.transform
+    h = ACT2FN[cfg.hidden_act](linear(hidden, t.dense))
+    h = layer_norm(h, t.ln.weight, t.ln.bias, cfg.layer_norm_eps)
+    logits = mm_f32(h.reshape(-1, h.shape[-1]),
+                    word_embeddings.to(h.dtype).t())
+    logits = logits + heads.predictions.bias.float()
+    return logits.reshape(h.shape[:-1] + (word_embeddings.shape[0],))
+
+
+def itm_logits(heads: PretrainingHeads, pooled: torch.Tensor) -> torch.Tensor:
+    """The 2-way image-text-match scores, fp32."""
+    return linear(pooled, heads.seq_relationship).float()

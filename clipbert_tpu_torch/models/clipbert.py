@@ -1,13 +1,15 @@
-"""ClipBERT end to end: grid-feature CNN + cross-modal BERT + retrieval head
-(port of clipbert_tpu/models/clipbert.py, inference path, head
-``retrieval``).
+"""ClipBERT end to end: grid-feature CNN + cross-modal BERT + task heads
+(port of clipbert_tpu/models/clipbert.py, inference path).
 
 Reference `ClipBertBaseModel` (`src/modeling/modeling.py:156-238`): text
 embeddings ‖ visual embeddings, visual tokens always visible, 12-layer joint
-encoder, tanh CLS pooler; the retrieval head is the 2-layer MLP classifier
-(`modeling.py:523-580`). The module tree mirrors the JAX parameter tree
-(``cnn.resnet``, ``cnn.grid_encoder``, ``transformer.bert.*``,
-``transformer.classifier``).
+encoder, tanh CLS pooler. Heads: PreTraining (MLM on the text slice + 2-way
+ITM, :241-307), SequenceClassification (2-layer MLP, :327-384),
+MultipleChoice (:387-451), Regression (:454-507) and VideoTextRetrieval
+(:523-580). The module tree mirrors the JAX parameter tree (``cnn.resnet``,
+``cnn.grid_encoder``, ``transformer.bert.*``, ``transformer.classifier`` /
+``regressor`` / ``cls``). The per-element losses mirror the reference's
+reduction="none".
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from clipbert_tpu_torch.core.config import ModelConfig
@@ -23,7 +26,7 @@ from clipbert_tpu_torch.core.mesh import Mesh
 from clipbert_tpu_torch.models import bert, resnet, visual_embed
 from clipbert_tpu_torch.ops.linear import linear
 
-HEAD_TYPES = ("retrieval",)
+HEAD_TYPES = ("pretrain", "seq_cls", "multi_choice", "regression", "retrieval")
 
 
 class BertBase(nn.Module):
@@ -45,14 +48,50 @@ class MLPHead(nn.Module):
         self.fc2 = nn.Linear(hid, out_dim)
 
 
+class RegressorBN(nn.Module):
+    """BatchNorm1d in eval form: the affine ``scale``/``bias`` and the
+    running ``mean``/``var`` under the JAX leaf names."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+        self.register_buffer("mean", torch.empty(dim))
+        self.register_buffer("var", torch.empty(dim))
+
+
+class Regressor(nn.Module):
+    """Linear -> ELU -> BN -> Linear to one output (modeling.py:454-507)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        D = cfg.hidden_size
+        self.fc1 = nn.Linear(D, D)
+        self.bn = RegressorBN(D)
+        self.fc2 = nn.Linear(D, 1)
+
+
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, head_type: str):
         super().__init__()
         if head_type not in HEAD_TYPES:
-            raise ValueError(f"head {head_type!r} is not ported; "
-                             f"ported heads: {HEAD_TYPES}")
+            raise ValueError(f"unknown head type {head_type!r}; heads: "
+                             f"{HEAD_TYPES}")
         self.bert = BertBase(cfg)
-        self.classifier = MLPHead(cfg, cfg.num_labels)
+        if head_type == "pretrain":
+            self.cls = bert.PretrainingHeads(cfg)
+        elif head_type in ("seq_cls", "retrieval"):
+            self.classifier = MLPHead(cfg, cfg.num_labels)
+        elif head_type == "multi_choice":
+            self.classifier = MLPHead(cfg, 1)
+        else:
+            self.regressor = Regressor(cfg)
+
+    @property
+    def mlm_decoder_weight(self) -> nn.Parameter:
+        """The MLM decoder weight: the word-embedding table itself
+        (reference BertLMPredictionHead's tied decoder), one Parameter."""
+        return self.bert.embeddings.word_embeddings.weight
 
 
 class ClipBert(nn.Module):
@@ -68,8 +107,9 @@ def _init_weights(model: ClipBert, cfg: ModelConfig,
                   g: torch.Generator) -> None:
     """The JAX package's init distributions, drawn from ``g`` only:
     normal(0, initializer_range) for dense kernels and embedding tables
-    (the text pad row zeroed), zero biases, unit LayerNorm, He-normal
-    (fan_out) convs, identity frozen BN."""
+    (the text pad row zeroed; the tied MLM decoder is the same table), zero
+    biases, unit LayerNorm, He-normal (fan_out) convs, identity frozen BN
+    and regressor BN (unit variance, zero mean)."""
     std = cfg.initializer_range
     for m in model.modules():
         if isinstance(m, nn.Linear):
@@ -86,6 +126,13 @@ def _init_weights(model: ClipBert, cfg: ModelConfig,
                              generator=g)
         elif isinstance(m, resnet.FrozenBN):
             m.scale.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, RegressorBN):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+            m.mean.zero_()
+            m.var.fill_(1.0)
+        elif isinstance(m, bert._LMPrediction):
             m.bias.zero_()
     emb = model.transformer.bert.embeddings.word_embeddings.weight
     emb[cfg.pad_token_id].zero_()
@@ -159,26 +206,140 @@ def fold_cnn_bn_scales(model: ClipBert) -> ClipBert:
     return model
 
 
+def repeat_for_texts(visual_feats: torch.Tensor,
+                     group_size: int) -> torch.Tensor:
+    """Fan visual features out to the texts grouped with each visual
+    (data_utils.py:344-357): (B_v, ...) -> (B_v * G, ...), rows repeated
+    consecutively."""
+    if group_size == 1:
+        return visual_feats
+    return visual_feats.repeat_interleave(group_size, dim=0)
+
+
 def clipbert_forward(model: ClipBert, cfg: ModelConfig,
                      batch: Dict[str, torch.Tensor], head_type: str, *,
                      compute_dtype=torch.bfloat16,
                      visual_features: Optional[torch.Tensor] = None,
+                     group_size: int = 1,
                      fused_attn: bool = False,
                      mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
-    """The per-clip unit of work, inference only, one text per visual.
+    """The per-clip unit of work, inference only (no dropout; regression's
+    BN on its stored running statistics).
+
     batch: text_input_ids (B, Lt), text_input_mask (B, Lt), and
-    visual_inputs (B, T, H, W, 3) unless ``visual_features`` (precomputed
-    grid features, (B, T, Hg, Wg, D)) is given. ``fused_attn`` and ``mesh``
-    as in bert.encoder: under a tensor-parallel mesh the model holds this
-    rank's shards (parallel/sharding.py::shard_model)."""
+    visual_inputs (B_v, T, H, W, 3) unless ``visual_features`` (precomputed
+    grid features, (B_v, T, Hg, Wg, D)) is given, with B = B_v *
+    ``group_size``: each visual is fanned out to the ``group_size`` texts
+    that follow it. ``fused_attn`` and ``mesh`` as in bert.encoder: under a
+    tensor-parallel mesh the model holds this rank's shards
+    (parallel/sharding.py::shard_model).
+
+    Returns ``logits`` (fp32) for seq_cls, retrieval and multi_choice (one
+    logit per text) and regression (one value), or ``mlm_scores`` (B, Lt,
+    vocab) and ``itm_scores`` (B, 2) for pretrain; and ``pooled_output``."""
     if head_type not in HEAD_TYPES:
-        raise ValueError(f"head {head_type!r} is not ported")
+        raise ValueError(f"unknown head type {head_type!r}")
     if visual_features is None:
         visual_features = cnn_forward(model.cnn, batch["visual_inputs"],
                                       compute_dtype)
+    visual_features = repeat_for_texts(visual_features, group_size)
     tp = model.transformer
-    _, pooled = base_forward(tp.bert, cfg, batch["text_input_ids"],
-                             batch["text_input_mask"], visual_features,
-                             compute_dtype, fused_attn=fused_attn, mesh=mesh)
-    return {"logits": mlp_head(tp.classifier, pooled),
-            "pooled_output": pooled}
+    hidden, pooled = base_forward(tp.bert, cfg, batch["text_input_ids"],
+                                  batch["text_input_mask"], visual_features,
+                                  compute_dtype, fused_attn=fused_attn,
+                                  mesh=mesh)
+    out: Dict[str, torch.Tensor] = {}
+    if head_type == "pretrain":
+        txt_len = batch["text_input_mask"].shape[1]
+        # the text slice into the MLM head, as modeling.py:283-285
+        out["mlm_scores"] = bert.mlm_logits(
+            tp.cls, tp.mlm_decoder_weight, hidden[:, :txt_len], cfg)
+        out["itm_scores"] = bert.itm_logits(tp.cls, pooled)
+    elif head_type == "regression":
+        rp = tp.regressor
+        h = F.elu(linear(pooled, rp.fc1).float())
+        # BatchNorm1d, eval: the stored running statistics
+        h = (h - rp.bn.mean) * torch.rsqrt(rp.bn.var + 1e-5)
+        h = h * rp.bn.scale + rp.bn.bias
+        out["logits"] = linear(h.to(compute_dtype), rp.fc2).float()
+    else:
+        out["logits"] = mlp_head(tp.classifier, pooled)
+    out["pooled_output"] = pooled
+    return out
+
+
+# ---------------------------------------------------------------------------
+# losses (per element, as the reference's reduction="none")
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: Optional[int] = None) -> torch.Tensor:
+    """Per-element CE; with ``ignore_index`` the ignored positions give 0
+    (torch CrossEntropyLoss(reduction='none'))."""
+    logits = logits.float()
+    labels = labels.long()
+    if ignore_index is not None:
+        valid = labels != ignore_index
+        safe = torch.where(valid, labels, 0)
+    else:
+        valid, safe = None, labels
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if valid is not None:
+        nll = torch.where(valid, nll, 0.0)
+    return nll
+
+
+def bce_with_logits(logits: torch.Tensor,
+                    targets: torch.Tensor) -> torch.Tensor:
+    """Per-element binary CE with logits (modeling.py:310-316)."""
+    logits = logits.float()
+    targets = targets.float()
+    return (logits.clamp(min=0) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def mse(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.square(logits.float().reshape(-1)
+                        - labels.float().reshape(-1))
+
+
+def classification_loss(cfg: ModelConfig, logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """SequenceClassification.calc_loss (modeling.py:364-384),
+    per element."""
+    if cfg.num_labels == 1:
+        return mse(logits, labels)
+    if cfg.loss_type == "bce":
+        return bce_with_logits(logits, labels)
+    if cfg.loss_type == "ce":
+        return cross_entropy(logits.reshape(-1, cfg.num_labels),
+                             labels.reshape(-1))
+    raise ValueError(f"invalid loss_type {cfg.loss_type}")
+
+
+def retrieval_rank_loss(logits: torch.Tensor, sample_size: int,
+                        margin: float) -> torch.Tensor:
+    """Margin triplet loss over sigmoid scores viewed as (sample_size, -1),
+    column 0 positive (modeling.py:567-575)."""
+    scores = torch.sigmoid(logits.float().reshape(-1))
+    scores = scores.reshape(sample_size, -1)
+    return (margin + scores[:, 1:] - scores[:, :1]).clamp(min=0.0)
+
+
+def pretrain_losses(cfg: ModelConfig, out: Dict[str, torch.Tensor],
+                    mlm_labels: Optional[torch.Tensor],
+                    itm_labels: Optional[torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """MLM + ITM per-element losses (modeling.py:287-298). mlm_labels uses
+    -100 for ignored positions, which give 0 loss and still count in the
+    mean a step takes, as in the reference."""
+    losses = {}
+    if mlm_labels is not None:
+        losses["mlm_loss"] = cross_entropy(
+            out["mlm_scores"].reshape(-1, cfg.vocab_size),
+            mlm_labels.reshape(-1), ignore_index=-100)
+    if itm_labels is not None:
+        losses["itm_loss"] = cross_entropy(out["itm_scores"].reshape(-1, 2),
+                                           itm_labels.reshape(-1))
+    return losses

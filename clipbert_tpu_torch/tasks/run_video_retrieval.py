@@ -164,7 +164,7 @@ def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
     # until group 0 lands (clipbert_tpu/tasks/run_video_retrieval.py:207-215)
     n_threads = max(1, min(cfg.n_workers, os.cpu_count() or 1))
     rows = []      # (video_idx, scores (n_caps,))
-    pending = []   # (group, host scores, copy-done event): fetched after
+    pending = []   # (group, common.HostFetch of its scores), read after the loop
     st["setup_s"] = time.perf_counter() - t_setup
     with ThreadPoolExecutor(n_threads) as pool:
         batches = pool.map(load, groups)
@@ -203,22 +203,12 @@ def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
             # start the D2H copy without blocking the loop: the next group's
             # launches overlap this group's compute, and the deferred fetch
             # below finds the bytes already on the host
-            if on_cuda:
-                host = torch.empty(scores_dev.shape, dtype=scores_dev.dtype,
-                                   pin_memory=True)
-                host.copy_(scores_dev, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                pending.append((group, host, done))
-            else:
-                pending.append((group, scores_dev, None))
+            pending.append((group, common.HostFetch(scores_dev)))
             del scores_dev
             st["dispatch_s"] += time.perf_counter() - t0
     t0 = time.perf_counter()
-    for group, scores, done in pending:
-        if done is not None:
-            done.synchronize()
-        scores = scores.numpy().astype(np.float32)
+    for group, fetch in pending:
+        scores = fetch.numpy().astype(np.float32)
         for j, vidx in enumerate(group):
             rows.append((vidx, scores[j]))
     st["fetch_s"] += time.perf_counter() - t0

@@ -1,6 +1,7 @@
 """Inference steps (port of clipbert_tpu/train/steps.py, the parts the
-retrieval serving and eval paths run: the clip-folded ``mil_forward`` for
-eval, the cached-feature encode and scoring steps).
+serving and eval paths run: the clip-folded ``mil_forward`` and the eval
+steps built on it, the pretraining eval step, the cached-feature encode and
+scoring steps, and the video-QA and QA answer steps).
 
 The JAX steps are jitted programs memoized per configuration; here a step
 is a plain closure run eagerly under ``torch.inference_mode``. A process
@@ -27,20 +28,25 @@ from clipbert_tpu_torch.ops import kernels_default
 
 @dataclass(frozen=True)
 class TaskSettings:
-    """Static per-task step configuration (the fields scoring reads)."""
+    """Static per-task step configuration (the fields the inference steps
+    read)."""
 
-    head_type: str                  # retrieval
+    head_type: str                  # pretrain|seq_cls|multi_choice|regression|retrieval
+    num_labels: int = 2
     loss_type: str = "ce"           # ce|bce|mse|rank
     score_agg_func: str = "mean"    # mean|max|lse
     train_n_clips: int = 1          # clips folded per mil_forward call
     group_size: int = 1             # texts per visual
+    use_mlm: bool = True
+    use_itm: bool = True
 
 
 @torch.inference_mode()
 def mil_forward(model: clipbert.ClipBert, cfg: ModelConfig,
                 ts: TaskSettings, batch: Dict[str, torch.Tensor],
                 compute_dtype=torch.bfloat16,
-                use_kernels: Optional[bool] = None) -> torch.Tensor:
+                use_kernels: Optional[bool] = None,
+                fused_attn: bool = False) -> torch.Tensor:
     """All ``ts.train_n_clips`` clips through CNN + BERT as one batch, eval
     only (clipbert_tpu/train/steps.py:116-165 with train=False: no dropout).
 
@@ -48,11 +54,13 @@ def mil_forward(model: clipbert.ClipBert, cfg: ModelConfig,
     and ["text_input_mask"]: (B_t, Lt) with B_t = B_v * group_size. Visuals
     fold clip-major, (B_v, nc * nf) -> (nc * B_v, nf), and the texts tile
     once per clip, so row c * B_t + t pairs clip c with text t. Returns
-    per-clip logits (B_t, nc, L). The attention core is the einsum path, as
-    in the JAX bench unit (bench.py:81-86); ``use_kernels`` as in
-    clipbert.cnn_forward."""
-    if ts.head_type != "retrieval":
-        raise ValueError(f"mil_forward: head {ts.head_type!r} is not ported")
+    per-clip logits (B', nc, L): B' = B_t, except for multi_choice, whose
+    options are consecutive texts with one logit each, folded into the
+    label axis: B' = B_t / num_labels questions of num_labels options.
+
+    ``use_kernels`` as in clipbert.cnn_forward. ``fused_attn`` picks the
+    attention core; the default is the einsum core, as in the JAX bench
+    unit (bench.py:81-86)."""
     vis = batch["visual_inputs"]
     B_v = vis.shape[0]
     nc = ts.train_n_clips
@@ -73,8 +81,14 @@ def mil_forward(model: clipbert.ClipBert, cfg: ModelConfig,
     out = clipbert.clipbert_forward(
         model, cfg, {"text_input_ids": batch["text_input_ids"].repeat(nc, 1),
                      "text_input_mask": batch["text_input_mask"].repeat(nc, 1)},
-        ts.head_type, compute_dtype=compute_dtype, visual_features=feats)
-    return out["logits"].reshape(nc, B_t, -1).transpose(0, 1)
+        ts.head_type, compute_dtype=compute_dtype, visual_features=feats,
+        fused_attn=fused_attn)
+    logits = out["logits"]                                  # (nc * B_t, L)
+    if ts.head_type == "multi_choice":
+        logits = logits.reshape(nc, B_t // ts.num_labels, ts.num_labels)
+    else:
+        logits = logits.reshape(nc, B_t, -1)
+    return logits.transpose(0, 1)
 
 
 def aggregate_clips(logits: torch.Tensor, agg: str) -> torch.Tensor:
@@ -204,5 +218,111 @@ def make_text_prob_step(cfg: ModelConfig, ts: TaskSettings,
         parts = [torch.empty_like(probs) for _ in range(mesh.n_data)]
         dist.all_gather(parts, probs.contiguous(), group=mesh.data_group)
         return torch.cat(parts, dim=1)
+
+    return step
+
+
+def _fused(fused_attn: Optional[bool], device: torch.device,
+           cfg: ModelConfig) -> bool:
+    return (fused_attn_default(device, None, cfg.num_attention_heads)
+            if fused_attn is None else fused_attn)
+
+
+def make_eval_step(cfg: ModelConfig, ts: TaskSettings,
+                   compute_dtype=torch.bfloat16,
+                   fused_attn: Optional[bool] = None,
+                   use_kernels: Optional[bool] = None) -> Callable:
+    """Forward-only step: (model, batch) -> {"clip_logits" (B', nc, L),
+    "logits": pooled over clips by ts.score_agg_func}.
+
+    ``fused_attn=None`` takes :func:`fused_attn_default`: the fused kernel
+    on a CUDA device. (The JAX step runs the einsum core here on purpose,
+    from a TPU measurement; the port keeps its one routing rule, and
+    chip_smoke.py times the two cores on this step.) ``use_kernels`` as in
+    clipbert.cnn_forward."""
+
+    @torch.inference_mode()
+    def step(model, batch):
+        fused = _fused(fused_attn, batch["visual_inputs"].device, cfg)
+        clip_logits = mil_forward(model, cfg, ts, batch, compute_dtype,
+                                  use_kernels, fused_attn=fused)
+        return {"clip_logits": clip_logits,
+                "logits": pool_clip_logits(clip_logits, ts.score_agg_func)}
+
+    return step
+
+
+def make_pretrain_eval_step(cfg: ModelConfig, ts: TaskSettings,
+                            compute_dtype=torch.bfloat16) -> Callable:
+    """Validation forward for pretraining: (model, batch) -> the mlm / itm
+    scores, ``pooled_output`` and the per-element ``mlm_loss`` /
+    ``itm_loss`` of the labels the batch carries (as ts.use_mlm /
+    ts.use_itm allow). The kernels run on a CUDA device
+    (:func:`fused_attn_default`, clipbert.cnn_forward)."""
+
+    @torch.inference_mode()
+    def step(model, batch):
+        fused = _fused(None, batch["visual_inputs"].device, cfg)
+        out = clipbert.clipbert_forward(
+            model, cfg, batch, "pretrain", compute_dtype=compute_dtype,
+            group_size=ts.group_size, fused_attn=fused)
+        losses = clipbert.pretrain_losses(
+            cfg, out,
+            batch.get("mlm_labels") if ts.use_mlm else None,
+            batch.get("itm_labels") if ts.use_itm else None)
+        return {**out, **losses}
+
+    return step
+
+
+def make_videoqa_prob_step(cfg: ModelConfig, ts: TaskSettings,
+                           compute_dtype=torch.bfloat16,
+                           fused_attn: Optional[bool] = None) -> Callable:
+    """(model, feats (1, nc, T, Hg, Wg, D), ids (B_t, Lt), mask) -> answer
+    probabilities for one cached video with the video-QA protocol's clip
+    handling (run_video_qa.py:216-362: per-clip logits pooled by
+    score_agg_func). Two head shapes:
+
+     - seq_cls (open-ended frameqa / msrvtt_qa): B_t questions, softmax
+       over the answer vocabulary -> (B_t, num_labels);
+     - multi_choice (action / transition): B_t = n_q * num_labels
+       question + option texts with one logit each; softmax over each
+       question's option block -> (n_q, num_labels).
+
+    ``fused_attn`` as in :func:`make_text_score_step`."""
+    score = make_text_score_step(cfg, ts, compute_dtype, fused_attn)
+
+    @torch.inference_mode()
+    def step(model, feats, ids, mask):
+        clip_logits = score(model, feats, ids, mask)[0]     # (B_t, nc, L)
+        pooled = pool_clip_logits(clip_logits, ts.score_agg_func).float()
+        if ts.head_type == "multi_choice":
+            pooled = pooled.reshape(-1, ts.num_labels)      # (n_q, options)
+        return torch.softmax(pooled, dim=-1)
+
+    return step
+
+
+def make_qa_answer_step(cfg: ModelConfig, ts: TaskSettings,
+                        compute_dtype=torch.bfloat16,
+                        fused_attn: Optional[bool] = None) -> Callable:
+    """(model, feats (1, T, Hg, Wg, D), ids (B_q, Lt), mask) -> (B_q,
+    num_labels) fp32 answer probabilities for one cached visual: the
+    serving unit of VQA / open-ended QA (sigmoid over a bce head, as the
+    reference's VQA protocol, run_vqa.py:347-356; softmax over a ce head).
+    The one visual fans out to every question through ``group_size``.
+    ``fused_attn`` as in :func:`make_text_score_step`."""
+
+    @torch.inference_mode()
+    def step(model, feats, ids, mask):
+        fused = _fused(fused_attn, feats.device, cfg)
+        out = clipbert.clipbert_forward(
+            model, cfg, {"text_input_ids": ids, "text_input_mask": mask},
+            "seq_cls", compute_dtype=compute_dtype, visual_features=feats,
+            group_size=ids.shape[0], fused_attn=fused)
+        logits = out["logits"].float()
+        if ts.loss_type == "bce":
+            return torch.sigmoid(logits)
+        return torch.softmax(logits, dim=-1)
 
     return step

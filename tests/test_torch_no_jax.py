@@ -69,7 +69,11 @@ NEW_MODULES = ["clipbert_tpu_torch.core.mesh",
                "clipbert_tpu_torch.ckpt.checkpoint",
                "clipbert_tpu_torch.tasks.common",
                "clipbert_tpu_torch.tasks.run_video_retrieval",
-               "clipbert_tpu_torch.utils.basic"]
+               "clipbert_tpu_torch.utils.basic",
+               "clipbert_tpu_torch.data.loader",
+               "clipbert_tpu_torch.tasks.run_msrvtt_mc",
+               "clipbert_tpu_torch.tasks.run_video_qa",
+               "clipbert_tpu_torch.tasks.run_vqa"]
 _CHECK = _CHECK.replace("NEW_MODULES", repr(NEW_MODULES))
 
 
