@@ -99,7 +99,7 @@ Phases; any failure raises and the script exits non-zero:
     16-clip and the 1-clip encode (windows tc, direct, direct, tc, direct,
     tc, tc, direct; their grid features on the same frames within
     FEAT_REL) and the bench unit at 8 x 16 and 128 x 1 clips.
-15. (run last) the QA family at full width, each config at its own
+15. (run after phase 14) the QA family at full width, each config at its own
     resolution and text length, with seeded models: VQA's seq_cls over
     3129 answers (bce), a seq_cls over a seeded 1500-answer vocabulary for
     frameqa and msrvtt_qa, the multiple-choice head for action. First the
@@ -126,12 +126,31 @@ Phases; any failure raises and the script exits non-zero:
     the earlier body's time beside it as ``earlier_ms``: attention's v2,
     matmul_bn_act's mma, the stem's direct; phase 15's launches, errors
     and times at the QA shapes as ``qa_launches``, ``qa_max_abs_err`` and
-    ``qa_shapes``), then {"ok": true, "device": {...}}.
+    ``qa_shapes``; phase 16's launches as ``train_launches``), then
+    {"ok": true, "device": {...}}.
 
 The ranks of phases 10 and 11 share the one card, so their process group
 runs over gloo, passed explicitly (NCCL refuses two ranks on one device):
 each row-parallel all-reduce and gather goes through the host. A rank that
 fails or outlives its phase's timeout fails the script.
+
+16. (after phase 15) MSRVTT retrieval training. 16a: one train step on
+    the card against the CPU in fp32 with TF32 off (hidden 128, 2 layers,
+    the full ResNet-50 at 64^2): loss, grad norm and every gradient within
+    TRAIN_LOSS_RTOL / TRAIN_BERT_REL / TRAIN_CNN_REL, no kernel launched;
+    the bf16 product's backward against fp32 autograd. 16b: run_video_
+    retrieval.start_training at the config's width and batch (16 videos x
+    8 clips x 2 frames at 448^2, bf16, seeded init) on phase 7's store
+    for TRAIN_STEPS steps, validating at the last through
+    inference_retrieval on the card. Counts from 0: every train step
+    launches no kernel, the validation 12 tc attention launches per
+    caption minibatch and 36 wg + 1 tc stem per encode; its matrix within
+    PROB_ATOL of the cuDNN + einsum form's on the trained weights; frozen
+    BN bit-unchanged, every parameter that had a gradient moved; the deploy
+    checkpoint and restore bundle written, and a second run resumes at the
+    saved step bit-equal to the bundle. 16c: LEARN_STEPS steps on one
+    repeated batch at LEARN_LR: the loss falls by LEARN_MARGIN; the step
+    time (CUDA events), train clips/s, peak memory and validation wall.
 
 Imports nothing of JAX. Needs one card, nvcc and a few minutes.
 """
@@ -140,6 +159,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import json
 import os
 import re
@@ -152,6 +172,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from clipbert_tpu_torch.ckpt import checkpoint
 from clipbert_tpu_torch.core.config import (ModelConfig, inject_task_attrs,
                                             load_run_config)
 from clipbert_tpu_torch.core.mesh import Mesh, make_mesh
@@ -277,6 +298,13 @@ def phase_device() -> None:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}; TF32 off for matmul and cuDNN "
           "(the fp32 comparisons need full fp32)")
+    try:
+        importlib.import_module("torch.utils.tensorboard")
+        tb = "present: the trainer writes TensorBoard event files"
+    except ImportError as e:
+        tb = (f"missing ({e}): the trainer writes its scalars to "
+              "log/scalars.jsonl (utils/logger.py::JsonlScalarWriter)")
+    print(f"tensorboard: {tb}")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2270,6 +2298,408 @@ def phase_qa_runners(models, model, model_cfg, tok, d, path):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: MSRVTT retrieval training
+# ---------------------------------------------------------------------------
+
+# 16a: one train step on the card against the CPU, fp32 with TF32 off, at a
+# small width over the full ResNet-50. Tolerances fixed before the first
+# run: the loss and grad norm within TRAIN_LOSS_RTOL; each gradient within
+# a share of its leaf's largest |element|: the transformer's TRAIN_BERT_REL
+# (fp32 sums in other orders: cuBLAS against oneDNN), the CNN's
+# TRAIN_CNN_REL (53 convs whose ReLU masks flip where a pre-activation sits
+# within rounding of 0: two CPU runs of the port, on other thread counts,
+# differ by percents; tests/test_torch_train_step.py). A leaf's scale is floored at
+# TRAIN_GRAD_FLOOR of the global gradient norm: the key biases' gradient is
+# 0 in exact arithmetic (softmax ignores a bias shared by all keys), so
+# both sides hold rounding noise there.
+TRAIN_CHECK_KW = dict(hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=4, intermediate_size=256,
+                      max_position_embeddings=64,
+                      max_grid_row_position_embeddings=8,
+                      max_grid_col_position_embeddings=8, num_labels=2,
+                      hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_FLOOR = 1e-6
+TRAIN_BERT_REL = 1e-3
+TRAIN_CNN_REL = 5e-2
+# the bf16 product's backward (ops/linear.py::_ProductF32) against fp32
+# autograd on the same bf16 operands: the cotangent rounds to bf16 (2**-9
+# relative) and each gradient once more to bf16 (2**-9)
+DENSE_BF16_REL = 1e-2
+# 16b: the config's batch for a few steps, validation at the last one
+TRAIN_STEPS = 4
+# 16c: 20 steps on one repeated batch (_learn_batch) from the seeded init
+# at a constant lr; the mean of the last 3 losses must sit LEARN_MARGIN
+# below the first. At lr 3e-5 and above the loss oscillated about chance
+# for 20 steps; at 1e-5 it fell steadily, by 0.029 (PERF.md §6): the
+# margin is a third of that. The first 3 steps warm up; the other 17 are
+# timed.
+LEARN_STEPS, LEARN_WARM, LEARN_LR, LEARN_MARGIN = 20, 3, 1e-5, 0.01
+
+
+def _tree_gap(name, got, want, rel, floor):
+    """max |got - want| / max(max |want|, floor) over one gradient,
+    checked against ``rel``."""
+    scale = max(float(want.abs().max()), floor)
+    gap = float((got - want).abs().max())
+    if gap > rel * max(scale, 1e-30):
+        raise AssertionError(f"{name}: gradient gap {gap:.3e} > {rel} x "
+                             f"{scale:.3e}")
+    return gap / scale
+
+
+def _train_grads(model, cfg, ts, batch):
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = steps.compute_loss(model, cfg, ts, batch, 0, True,
+                                 torch.float32)
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu() for n, p in
+             model.named_parameters() if p.grad is not None}
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                for g in grads.values())))
+    return float(loss.detach()), norm, grads
+
+
+def phase_train_autograd(tok):
+    """16a: the train step's autograd on the card (cuDNN, cuBLAS) against
+    the CPU path, which the CPU tests hold to JAX."""
+    import copy
+    from clipbert_tpu_torch.ops.linear import dense
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(vocab_size=len(tok), **TRAIN_CHECK_KW)
+    ts = steps.TaskSettings(head_type="retrieval", score_agg_func="lse",
+                            train_n_clips=2, group_size=2)
+    cpu_model = clipbert.init_clipbert(
+        cfg, generator=torch.Generator().manual_seed(7), device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    rng = np.random.default_rng(7)
+    ids = rng.integers(1, len(tok), (4, 12))
+    mask = np.ones_like(ids)
+    mask[:, 9:] = 0
+    host = {"visual_inputs": (rng.standard_normal((2, 2, 64, 64, 3))
+                              * 50).astype(np.float32),
+            "text_input_ids": ids, "text_input_mask": mask,
+            "labels": np.array([1, 0, 1, 0])}
+    _reset_counts()
+    out = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        out[dev] = _train_grads(model, cfg, ts, batch)
+    _expect("16a train step, kernels", sum(_counts()), 0)
+    (lg, ng, gg), (lc, nc_, gc) = out["cuda"], out["cpu"]
+    for what, a, b in (("loss", lg, lc), ("grad norm", ng, nc_)):
+        if abs(a - b) > TRAIN_LOSS_RTOL * abs(b):
+            raise AssertionError(f"16a {what}: card {a} vs CPU {b}")
+    if gg.keys() != gc.keys():
+        raise AssertionError("16a: the card and the CPU have gradients for "
+                             "different parameters")
+    worst = {"cnn": 0.0, "transformer": 0.0}
+    for n in gc:
+        part = "cnn" if n.startswith("cnn.") else "transformer"
+        worst[part] = max(worst[part], _tree_gap(
+            n, gg[n], gc[n],
+            TRAIN_CNN_REL if part == "cnn" else TRAIN_BERT_REL,
+            TRAIN_GRAD_FLOOR * nc_))
+    # the bf16 product's custom backward, as the full-width step runs it
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(512, 768, device="cuda", generator=g).bfloat16()
+    w = torch.randn(3072, 768, device="cuda", generator=g).bfloat16()
+    b = torch.randn(3072, device="cuda", generator=g)
+    dy = torch.randn(512, 3072, device="cuda", generator=g)
+    grads = []
+    for xx, ww in ((x, w), (x.float(), w.float())):
+        xx, ww, bb = (t.detach().requires_grad_() for t in (xx, ww, b))
+        y = dense(xx, ww, bb)
+        (y.float() * dy).sum().backward()
+        grads.append((xx.grad.float(), ww.grad.float(), bb.grad.float()))
+    dense_rel = max(float((a - r).abs().max() / r.abs().max())
+                    for a, r in zip(*grads))
+    if dense_rel > DENSE_BF16_REL:
+        raise AssertionError(f"bf16 dense backward: {dense_rel} > "
+                             f"{DENSE_BF16_REL}")
+    print(f"16a train step, card vs CPU (fp32, TF32 off, {len(gc)} "
+          f"gradients, hidden 128 over the full ResNet-50 at 64^2): loss "
+          f"{lg:.7f} vs {lc:.7f}, grad norm {ng:.7e} vs {nc_:.7e}; worst "
+          f"gradient gap / leaf max: transformer {worst['transformer']:.3e} "
+          f"(bound {TRAIN_BERT_REL}), CNN {worst['cnn']:.3e} (bound "
+          f"{TRAIN_CNN_REL}); bf16 dense backward vs fp32 autograd "
+          f"{dense_rel:.3e} (bound {DENSE_BF16_REL}); 0 kernel launches")
+
+
+def _train_cfg(d, path, rows):
+    """The MSRVTT retrieval config with its batch (16 videos x 8 clips x
+    2 frames at 448^2, 1 positive + 1 negative caption a video, bf16),
+    the seeded init (no reference .pt), phase 7's store: one train caption
+    per video and the 72 captions to validate on."""
+    with open(os.path.join(ROOT, "configs",
+                           "msrvtt_ret_base_resnet50.json")) as f:
+        base = json.load(f)
+    train_txt = os.path.join(d, "train.jsonl")
+    val_txt = os.path.join(d, "val.jsonl")
+    with open(train_txt, "w") as f:
+        for r in rows[:EVAL_VIDEOS]:
+            f.write(json.dumps({"vid_id": r["vid_id"], "txt": r["txt"]})
+                    + "\n")
+    with open(val_txt, "w") as f:
+        for r in rows:
+            f.write(json.dumps({"vid_id": r["vid_id"], "txt": r["txt"]})
+                    + "\n")
+    base.update(
+        model_config=os.path.join(ROOT, base["model_config"]),
+        tokenizer_dir=d, e2e_weights_path=None,
+        train_datasets=[{"name": "msrvtt", "txt": train_txt, "img": path}],
+        val_datasets=[{"name": "msrvtt", "txt": val_txt, "img": path}],
+        output_dir=os.path.join(d, "train_out"),
+        num_train_epochs=TRAIN_STEPS * base["train_batch_size"]
+        // EVAL_VIDEOS, num_valid=1, min_valid_steps=TRAIN_STEPS,
+        save_steps_ratio=0.5, inference_video_batch_size=8, device="cuda")
+    cfg_path = os.path.join(d, "train_run.json")
+    with open(cfg_path, "w") as f:
+        json.dump(base, f)
+    return load_run_config(["--config", cfg_path])
+
+
+def phase_train(tok, d, path, rows):
+    """16b and 16c. Returns the validation's launches (attention,
+    matmul_bn_act, fused_stem_pool)."""
+    from clipbert_tpu_torch.ckpt.from_jax import model_state, to_jax_flat
+    from clipbert_tpu_torch.tasks import run_video_retrieval as rvr
+    from clipbert_tpu_torch.train import optim, trainer
+    t16 = time.perf_counter()
+    cfg = _train_cfg(d, path, rows)
+    steps_rec, val_rec = [], []
+    real_step, real_val = steps.make_train_step, rvr.inference_retrieval
+
+    def recording_step(*a, **k):
+        step = real_step(*a, **k)
+
+        def run(state, batch, seed):
+            before = _counts()
+            state, m = step(state, batch, seed)
+            steps_rec.append((m, [x - y for x, y in zip(_counts(), before)],
+                              batch))
+            return state, m
+        return run
+
+    def recording_val(*a, **k):
+        before = _counts()
+        stats = {}
+        t0 = time.perf_counter()
+        out = real_val(*a, stage_stats=stats, **k)
+        val_rec.append((out, [x - y for x, y in zip(_counts(), before)],
+                        time.perf_counter() - t0, stats, before))
+        return out
+
+    # ---- the main path: counts from 0, read right after ----
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps.make_train_step, rvr.inference_retrieval = (recording_step,
+                                                      recording_val)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = rvr.start_training(cfg)
+    finally:
+        steps.make_train_step, rvr.inference_retrieval = real_step, real_val
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    model_cfg = inject_task_attrs(ModelConfig.from_json(cfg.model_config),
+                                  cfg)
+
+    # every step finite, positive, no kernel launched
+    if res["global_step"] != TRAIN_STEPS or len(steps_rec) != TRAIN_STEPS:
+        raise AssertionError(f"trained {res['global_step']} steps, "
+                             f"expected {TRAIN_STEPS}")
+    losses = [float(m["loss"]) for m, _, _ in steps_rec]
+    norms = [float(m["grad_norm"]) for m, _, _ in steps_rec]
+    for i, (m, launched, _) in enumerate(steps_rec):
+        _expect(f"train step {i + 1}, kernels", sum(launched), 0)
+    if not all(np.isfinite(losses + norms)) or min(losses + norms) <= 0:
+        raise AssertionError(f"losses {losses} grad norms {norms}")
+    # validation: once, at the last step, every kernel on its body
+    if len(val_rec) != 1:
+        raise AssertionError(f"{len(val_rec)} validations, expected 1")
+    val, vl, val_wall, stats, before = val_rec[0]
+    _expect("kernels before the validation", sum(before), 0)
+    g = stats["n_groups"]
+    n_cap = -(-EVAL_CAPTIONS // cfg.inference_batch_size)
+    _expect("validation, attention", vl[0],
+            model_cfg.num_hidden_layers * g * n_cap)
+    _expect("validation, attention on the tensor-core body", vl[3], vl[0])
+    _expect("validation, matmul_bn_act", vl[1], MBA_PER_ENCODE * g)
+    _expect("validation, matmul_bn_act on the wgmma body", vl[4], vl[1])
+    _expect("validation, fused_stem_pool", vl[2], g)
+    _expect("validation, fused_stem_pool on the tensor-core body", vl[5],
+            vl[2])
+    if list(total) != vl:
+        raise AssertionError(f"launches {total} outside the validation's "
+                             f"{vl}")
+    _check_matrix(val["score_matrix"])
+    # frozen BN bit-unchanged, every trainable parameter moved
+    model = res["model"]
+    init = trainer.setup_model(cfg, model_cfg, "retrieval", "cuda")
+    before_state, after = model_state(init), model_state(model)
+    n_bn = n_moved = 0
+    still = []
+    for n, t in after.items():
+        if ".bn." in n and n.startswith("cnn."):
+            n_bn += 1
+            if not torch.equal(t, before_state[n]):
+                raise AssertionError(f"frozen BN {n} changed")
+        elif torch.equal(t, before_state[n]):
+            if bool(res["state"].opt.mu[n].any()):
+                raise AssertionError(f"{n} had gradients and did not move")
+            still.append(n)
+        else:
+            n_moved += 1
+    del init
+    # the validated matrix against the cuDNN + einsum form on the same
+    # trained weights
+    val_ds = rvr.build_val_dataset(cfg, tok)
+    ref = rvr.inference_retrieval(cfg, model_cfg, model, val_ds,
+                                  torch.bfloat16, use_kernels=False,
+                                  fused_attn=False)
+    err = float(np.abs(ref["score_matrix"] - val["score_matrix"]).max())
+    if err > PROB_ATOL:
+        raise AssertionError(f"validation matrices: kernel form vs cuDNN + "
+                             f"einsum form {err} > {PROB_ATOL}")
+    out = cfg.output_dir
+    saved = checkpoint.ModelSaver(out).available_steps()
+    if saved != [TRAIN_STEPS] or not os.path.exists(
+            os.path.join(out, "restore.npz")):
+        raise AssertionError(f"checkpoints {os.listdir(out)}")
+    logs = os.listdir(os.path.join(out, "log"))
+    if not any(f.startswith("events.out") or f == "scalars.jsonl"
+               for f in logs):
+        raise AssertionError(f"no scalar log in {logs}")
+    # a second run on the same output_dir resumes at the saved step
+    bundle = checkpoint.load_tree(os.path.join(out, "restore.npz"))
+    res2 = rvr.start_training(_train_cfg(d, path, rows))
+    resumed = to_jax_flat(model_state(res2["model"]))
+    final = to_jax_flat(after)
+    want = checkpoint.flatten_tree(bundle["state"]["params"])
+    if res2["global_step"] != TRAIN_STEPS or int(bundle["global_step"]) \
+            != TRAIN_STEPS or res2["state"].opt.step != TRAIN_STEPS:
+        raise AssertionError("resume did not start at the saved step")
+    for k in final:
+        if not (np.array_equal(resumed[k], want[k])
+                and np.array_equal(final[k], want[k])):
+            raise AssertionError(f"resumed {k} differs from the bundle")
+    del res2, resumed, bundle, want
+    print(f"16b training at full width ({cfg.train_batch_size} videos x "
+          f"{cfg.train_n_clips} clips x {cfg.num_frm} frames at "
+          f"{cfg.max_img_size}^2, {1 + cfg.itm_neg_size} captions a video, "
+          f"bf16, remat {cfg.remat}): {TRAIN_STEPS} steps + validation in "
+          f"{wall:.2f} s; losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; grad norms " + ", ".join(f"{x:.4f}" for x in norms)
+          + f"; 0 kernel launches in the train steps; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+    print(f"16b validation (inference_retrieval on the live weights, "
+          f"{g} video groups x {n_cap} caption minibatches): wall "
+          f"{val_wall:.3f} s; attention {vl[0]} ({vl[3]} tc), matmul_bn_act "
+          f"{vl[1]} ({vl[4]} wg), fused_stem_pool {vl[2]} ({vl[5]} tc); "
+          f"stage stats {_stats_json(stats)}; R@1 t2v {val['t2v_r1']}; "
+          f"vs the cuDNN + einsum form max_abs_diff {err:.3e} (bound "
+          f"{PROB_ATOL})")
+    print(f"16b weights: {n_bn} frozen BN buffers bit-unchanged, {n_moved} "
+          f"trainable parameters moved, unmoved with no gradient ever: "
+          f"{still}; model_step_{TRAIN_STEPS}.npz and restore.npz written; "
+          f"the second run resumed at step {TRAIN_STEPS}, bit-equal to the "
+          f"bundle")
+
+    # ---- 16c: learning on one repeated batch, timed with CUDA events ----
+    batch = _learn_batch(steps_rec[0][2], tok, rows, cfg)
+    del steps_rec[:], val_rec[:], model, res
+    torch.cuda.empty_cache()
+    ts = rvr.make_task_settings(cfg)
+    state, step = _learn_setup(cfg, model_cfg, ts)
+    events, metrics = [], []
+    _reset_counts()
+    for i in range(LEARN_STEPS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, m = step(state, batch, 1000 + i)
+        e1.record()
+        events.append((e0, e1))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    _expect("16c train steps, kernels", sum(_counts()), 0)
+    ms = [a.elapsed_time(b) for a, b in events[LEARN_WARM:]]
+    losses = [float(m["loss"]) for m in metrics]
+    last = float(np.mean(losses[-3:]))
+    clips = cfg.train_batch_size * cfg.train_n_clips
+    med = float(np.median(ms))
+    print(f"16c {LEARN_STEPS} steps on one repeated batch at constant lr "
+          f"{LEARN_LR}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; mean of the last 3 {last:.4f} vs first {losses[0]:.4f} "
+          f"(must fall by {LEARN_MARGIN})")
+    if not last < losses[0] - LEARN_MARGIN:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    print(f"16 train step at full width (CUDA events, median of {len(ms)} "
+          f"after {LEARN_WARM} warm-up): {med:.2f} ms (min {min(ms):.2f}, "
+          f"max {max(ms):.2f}); {clips / (med / 1e3):.1f} train clips/s "
+          f"({clips} clips a step); peak memory {peak / 2**30:.2f} GiB; "
+          f"validation wall {val_wall:.3f} s; card "
+          + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60).stdout.strip())
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    del state, step, batch, metrics
+    torch.cuda.empty_cache()
+    return vl[:3]
+
+
+def _learn_batch(batch, tok, rows, cfg):
+    """16b's first batch (each video's caption, then a negative), its
+    negatives swapped for captions 16.. of phase 7's rows: captions no
+    positive of the batch shares, each paired with a video it does not
+    describe. In 16b's batch every negative is another video's positive,
+    so one repeated batch holds each text under both labels."""
+    ids, mask = batch["text_input_ids"].clone(), \
+        batch["text_input_mask"].clone()
+    n = ids.shape[0] // 2
+    vids = [r["vid_id"] for r in rows]
+    negs = [r["txt"] for r in rows[EVAL_VIDEOS:]]
+    enc = tok.batch_encode(negs, cfg.max_txt_len)
+    labels = batch["labels"].cpu().numpy()
+    for k in range(n):
+        # the batch's order is the sampler's: find this pair's video by
+        # its positive caption, then a caption of another video
+        pos = ids[2 * k].tolist()
+        v = next(i for i in range(EVAL_VIDEOS) if tok.batch_encode(
+            [rows[i]["txt"]], cfg.max_txt_len)["input_ids"][0].tolist()
+            == pos)
+        j = next(j for j in range(k, len(negs))
+                 if vids[EVAL_VIDEOS + j] != vids[v])
+        ids[2 * k + 1] = torch.from_numpy(enc["input_ids"][j])
+        mask[2 * k + 1] = torch.from_numpy(enc["attention_mask"][j])
+    if not (labels[0::2] == 1).all() or (labels[1::2] != 0).any():
+        raise AssertionError(f"labels {labels}: not (positive, negative) "
+                             "pairs")
+    return dict(batch, text_input_ids=ids, text_input_mask=mask)
+
+
+def _learn_setup(cfg, model_cfg, ts, lr=LEARN_LR):
+    """A fresh seeded model (the init 16b started from), a fresh AdamW
+    and a constant lr: (state, step)."""
+    from clipbert_tpu_torch.train import optim, trainer
+    model = trainer.setup_model(cfg, model_cfg, "retrieval", "cuda")
+    oc = trainer.optim_config_from_run(cfg)
+    meta = optim.build_group_meta(model, oc)
+    state = steps.init_train_state(model, meta)
+    ss = steps.ScheduleSettings(learning_rate=lr, cnn_learning_rate=lr,
+                                decay="constant", cnn_decay="constant",
+                                num_train_steps=LEARN_STEPS)
+    return state, steps.make_train_step(model_cfg, ts, oc, ss, meta,
+                                        compute_dtype=torch.bfloat16)
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -2313,6 +2743,8 @@ def main() -> None:
               f"{qa_launches[1]} ({qa_launches[4]} on wg) and "
               f"fused_stem_pool {qa_launches[2]} ({qa_launches[5]} on tc) "
               "times")
+        phase_train_autograd(tok)
+        train_launches = phase_train(tok, d, path, rows)
 
     def record(name, source, replaces, n, err, t, design, qa=None):
         out = {"name": name, "route": "cuda",
@@ -2321,11 +2753,13 @@ def main() -> None:
                **t, "design": design}
         if qa is not None:
             # phase 15: launches on the QA family's main paths, the worst
-            # bf16 error and the times at its shapes
+            # bf16 error and the times at its shapes; phase 16: launches in
+            # the training run (all in its validation)
             i = ("fused_attention", "matmul_bn_act",
                  "fused_stem_pool").index(name)
             out.update(qa_launches=qa_launches[i], qa_max_abs_err=qa_err[name],
-                       qa_shapes=qa_times[name])
+                       qa_shapes=qa_times[name],
+                       train_launches=train_launches[i])
         return out
 
     tc = ("body tc: QK^T and PV on mma.sync m16n8k16 (bf16 in, fp32 "

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's parameters -> the port's modules.
+"""Weight bridge between the JAX package's parameter trees and the port's
+modules, both ways.
 
 Accepts either form the JAX package produces, as numpy:
  - the nested tree, ``jax.tree.map(np.asarray, params)``;
@@ -27,12 +28,15 @@ happens when the JAX package imports them (clipbert_tpu/ckpt/
 torch_import.py:212). This bridge flips nothing.
 
 Loading is strict: a JAX leaf with no port counterpart, or a port tensor
-that no leaf fills, raises.
+that no leaf fills, raises. :func:`to_jax_flat` runs the rules backwards:
+the port's tensors (a model's state, or optimizer moments keyed by the same
+names) -> the flat JAX key scheme, with the encoder layers stacked again,
+so clipbert_tpu/ckpt/checkpoint.py::load_tree reads what the port writes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,16 +85,75 @@ def _entries(key: str, arr: np.ndarray) -> Iterator[Tuple[str, np.ndarray]]:
         yield _leaf(parts, arr)
 
 
-@torch.no_grad()
-def load_jax_params(model: nn.Module, tree) -> nn.Module:
-    """Copy a JAX parameter tree (nested or flat, numpy leaves) into
-    ``model`` in place, on the model's device; returns the model."""
+def port_values(tree) -> Dict[str, np.ndarray]:
+    """A JAX tree (nested or flat, numpy leaves) -> {port state name: fp32
+    array in the port's layout}."""
     nested = any(isinstance(v, (dict, list, tuple)) for v in tree.values())
     flat = _flatten(tree) if nested else tree
     values: Dict[str, np.ndarray] = {}
     for key, arr in flat.items():
         for name, a in _entries(key, np.asarray(arr, np.float32)):
             values[name] = a
+    return values
+
+
+def jax_name(name: str) -> Tuple[str, Optional[int]]:
+    """A port state name -> (its JAX leaf path, the encoder layer it is a
+    slice of, or None)."""
+    parts = name.split(".")
+    layer = None
+    if tuple(parts[:4]) == (*_ENCODER, "layers"):
+        layer = int(parts[4])
+        parts = [*_ENCODER, *parts[5:]]
+    if parts[-1] == "weight":
+        if parts[-2] == "ln":
+            parts[-1] = "scale"
+        elif parts[-2] in _TABLES:
+            parts = parts[:-1]
+        else:
+            parts[-1] = "kernel"
+    return "/".join(parts), layer
+
+
+def to_jax_flat(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """{port state name: tensor} -> the flat JAX tree {'a/b/0/c': fp32
+    array} on the host: dense kernels (in, out), conv kernels HWIO, the
+    encoder layers stacked on a leading axis."""
+    out: Dict[str, np.ndarray] = {}
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    for name, t in tensors.items():
+        key, layer = jax_name(name)
+        t = t.detach().float()
+        if key.endswith("/kernel"):
+            # the layout change on the tensor's device (a transposing copy
+            # there is fast; numpy's on the host is not)
+            t = t.t() if t.dim() == 2 else t.permute(2, 3, 1, 0)
+        # a copy, never a view of the live tensor: an async write must not
+        # see the next update
+        a = t.contiguous().to("cpu", copy=True).numpy()
+        if layer is None:
+            out[key] = a
+        else:
+            layers.setdefault(key, {})[layer] = a
+    for key, by_layer in layers.items():
+        out[key] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    return out
+
+
+def model_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's parameters and its buffers that are set (a folded BN
+    has no ``scale``), by state name; the tied MLM decoder appears once,
+    as the word-embedding table."""
+    state = dict(model.named_parameters())
+    state.update((n, b) for n, b in model.named_buffers() if b is not None)
+    return state
+
+
+@torch.no_grad()
+def load_jax_params(model: nn.Module, tree) -> nn.Module:
+    """Copy a JAX parameter tree (nested or flat, numpy leaves) into
+    ``model`` in place, on the model's device; returns the model."""
+    values = port_values(tree)
     for mname, m in model.named_modules():
         if isinstance(m, FrozenBN):
             if f"{mname}.scale" not in values:

@@ -1,14 +1,17 @@
-# Copied from clipbert_tpu/data/datasets.py (the eval parts of BaseDataset; VideoRetrievalEvalDataset, RetrievalCollator, MSRVTTMCEvalDataset, VideoQACollator; VideoQADataset and VQADataset in eval form; the annotation loaders): JAX-free host code.
-"""Eval datasets and collators (numpy, host-side).
+# Copied from clipbert_tpu/data/datasets.py (the eval parts of BaseDataset and _retry_indices; VideoRetrievalTrainDataset, VideoRetrievalEvalDataset, RetrievalCollator, MSRVTTMCEvalDataset, VideoQACollator; VideoQADataset and VQADataset in eval form; the annotation loaders): JAX-free host code.
+"""Datasets and collators (numpy, host-side).
 
 Capability match for the reference's `src/datasets/dataset_*.py`, the
-parts inference runs:
+parts retrieval training and inference run:
 
  - :class:`BaseDataset` — media store read + decode + resize/pad
    (dataset_base.py:165-273), uint8 NHWC out; image loads
    (dataset_base.py:207-226); extreme-aspect-ratio skip
    (dataset_base.py:228-233), multi-clip ensemble loads with prev-clip
    fallback (dataset_video_qa.py:49-81).
+ - :class:`VideoRetrievalTrainDataset` — one video's random clips with its
+   caption and ``itm_neg_size`` random negative captions, all drawn from
+   the item's own generator (dataset_video_retrieval.py:13-102).
  - :class:`VideoRetrievalEvalDataset` — per-video items scored against the
    full caption list (dataset_video_retrieval.py:174-250).
  - :class:`MSRVTTMCEvalDataset` — 5 options per video
@@ -21,7 +24,8 @@ parts inference runs:
 
 An eval item whose visual does not decode becomes black frames, never
 another item (its question ids would replace this one's in the results).
-The train datasets wait for the training slice of the port.
+The pretraining, video-QA and VQA train datasets wait for later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -175,6 +179,13 @@ class BaseDataset:
         s = transforms._BUCKET if self.device_preprocess else self.max_img_size
         return np.zeros((n_frames, s, s, 3), np.uint8)
 
+    def _retry_indices(self, index: int, n: int = 3, rng=None):
+        """index then random resamples (dataset_pretrain.py:46-59)."""
+        rng = rng if rng is not None else self.rng
+        yield index
+        for _ in range(n - 1):
+            yield int(rng.integers(0, len(self)))
+
 
 class VideoRetrievalEvalDataset(BaseDataset):
     """datalist: list of dicts {"id": int (== position), "txt": str,
@@ -221,6 +232,45 @@ class VideoRetrievalEvalDataset(BaseDataset):
         for d in self.datalist:
             gt[vid_pos[d["vid_id"]], d["id"]] = True
         return gt
+
+
+class VideoRetrievalTrainDataset(BaseDataset):
+    """datalist: list of (vid_id, [ {"txt": str, "id": int}, ... ])."""
+
+    def __init__(self, *args, itm_neg_size: int = 1, ensemble_n_clips: int = 1,
+                 random_sample_clips: bool = True, **kw):
+        super().__init__(*args, **kw)
+        self.itm_neg_size = itm_neg_size
+        self.ensemble_n_clips = ensemble_n_clips
+        self.random_sample_clips = random_sample_clips
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        rng = self.item_rng(index)
+        for idx in self._retry_indices(index, rng=rng):
+            vid_id, examples = self.datalist[idx]
+            arr = self.load_video_multi_clips(
+                vid_id, self.ensemble_n_clips, self.random_sample_clips,
+                rng=rng)
+            if arr is not None:
+                break
+        else:
+            raise RuntimeError(f"failed to load video for index {index}")
+        sampled = []
+        for e in examples:
+            sampled.append({"text_str": e["txt"], "itm_label": 1})
+            for _ in range(self.itm_neg_size):
+                sampled.append({"text_str": self._random_negative(idx, rng),
+                                "itm_label": 0})
+        return {**self.vis_item(arr), "examples": sampled}
+
+    def _random_negative(self, gt_index: int, rng) -> str:
+        gt_id, _ = self.datalist[gt_index]
+        neg_id = gt_id
+        while neg_id == gt_id:
+            neg_index = int(rng.integers(0, len(self)))
+            neg_id, neg_examples = self.datalist[neg_index]
+        pick = int(rng.integers(0, len(neg_examples)))
+        return neg_examples[pick]["txt"]
 
 
 class RetrievalCollator:

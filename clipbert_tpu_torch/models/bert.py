@@ -1,5 +1,5 @@
 """BERT encoder stack and pretraining heads (port of
-clipbert_tpu/models/bert.py, inference path).
+clipbert_tpu/models/bert.py).
 
 Post-LN transformer (reference vendored HF-2.11 BERT,
 `src/modeling/transformers.py`): softmax(QK^T/sqrt(d)+mask)V attention,
@@ -17,12 +17,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from clipbert_tpu_torch.core.config import ModelConfig
 from clipbert_tpu_torch.core.mesh import Mesh
+from clipbert_tpu_torch.core.rng import derive_seed, generator
 from clipbert_tpu_torch.ops.activations import ACT2FN
 from clipbert_tpu_torch.ops.attention import SelfAttention, multi_head_attention
+from clipbert_tpu_torch.ops.dropout import dropout
 from clipbert_tpu_torch.ops.layernorm import layer_norm
 from clipbert_tpu_torch.ops.linear import dense_row_parallel, linear, mm_f32
 
@@ -103,15 +106,19 @@ class PretrainingHeads(nn.Module):
 
 
 def text_embeddings(p: TextEmbeddings, input_ids: torch.Tensor,
-                    cfg: ModelConfig, compute_dtype) -> torch.Tensor:
+                    cfg: ModelConfig, compute_dtype,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
     """word + absolute-position + token-type(0) embeddings, then LN in the
-    compute dtype (reference BertEmbeddings, transformers.py:151-199)."""
+    compute dtype and dropout with ``generator`` (training) (reference
+    BertEmbeddings, transformers.py:151-199)."""
     L = input_ids.shape[1]
     emb = p.word_embeddings.weight[input_ids]
     emb = emb + p.position_embeddings.weight[:L][None, :, :]
     emb = emb + p.token_type_embeddings.weight[0][None, None, :]
-    return layer_norm(emb.to(compute_dtype), p.ln.weight, p.ln.bias,
-                      cfg.layer_norm_eps)
+    emb = layer_norm(emb.to(compute_dtype), p.ln.weight, p.ln.bias,
+                     cfg.layer_norm_eps)
+    return dropout(emb, cfg.hidden_dropout_prob, generator)
 
 
 def extended_attention_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -122,7 +129,9 @@ def extended_attention_mask(mask: torch.Tensor) -> torch.Tensor:
 
 def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
             cfg: ModelConfig, fused_attn: bool = False,
-            mesh: Optional[Mesh] = None) -> torch.Tensor:
+            mesh: Optional[Mesh] = None,
+            dropout_seed: Optional[int] = None,
+            remat=False) -> torch.Tensor:
     """The post-LN layer stack (reference BertEncoder,
     transformers.py:429-461).
 
@@ -133,10 +142,18 @@ def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
     all-reduce each over the model group (ops/linear.py::
     dense_row_parallel). LayerNorms and residuals are computed whole on
     every rank. ``fused_attn`` as in ops/attention.py::multi_head_attention.
+
+    Training: ``dropout_seed`` (the JAX ``dropout_key``) seeds three
+    dropouts a layer (attention probabilities, attention output, FFN
+    output), each from its own generator built inside the layer from
+    (seed, layer, site); a truthy ``remat`` checkpoints every layer
+    (``jax.checkpoint`` of the layer body), recomputing it, with the same
+    masks, in the backward pass.
     """
     act = ACT2FN[cfg.hidden_act]
     eps = cfg.layer_norm_eps
     tp = mesh is not None and mesh.n_model > 1
+    device = hidden.device
 
     def out_dense(x, layer):
         if tp:
@@ -144,17 +161,31 @@ def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
                                       mesh.model_group)
         return linear(x, layer)
 
-    for lp in p.layers:
+    def layer_fn(hidden, lp, i):
+        g_attn, g_res, g_ffn = (
+            generator(None if dropout_seed is None
+                      else derive_seed(dropout_seed, i, j), device)
+            for j in range(3))
         ctx = multi_head_attention(hidden, lp.attention.self,
                                    cfg.num_attention_heads, mask_bias,
-                                   fused=fused_attn, mesh=mesh)
+                                   fused=fused_attn, mesh=mesh,
+                                   dropout_rate=cfg.attention_probs_dropout_prob,
+                                   generator=g_attn)
         ao = lp.attention.output
-        a = out_dense(ctx, ao.dense)
+        a = dropout(out_dense(ctx, ao.dense), cfg.hidden_dropout_prob, g_res)
         hidden = layer_norm(a + hidden, ao.ln.weight, ao.ln.bias, eps)
         inter = act(linear(hidden, lp.intermediate.dense))
-        out = out_dense(inter, lp.output.dense)
-        hidden = layer_norm(out + hidden, lp.output.ln.weight,
-                            lp.output.ln.bias, eps)
+        out = dropout(out_dense(inter, lp.output.dense),
+                      cfg.hidden_dropout_prob, g_ffn)
+        return layer_norm(out + hidden, lp.output.ln.weight,
+                          lp.output.ln.bias, eps)
+
+    for i, lp in enumerate(p.layers):
+        if remat:
+            hidden = torch.utils.checkpoint.checkpoint(
+                layer_fn, hidden, lp, i, use_reentrant=False)
+        else:
+            hidden = layer_fn(hidden, lp, i)
     return hidden
 
 

@@ -1,5 +1,5 @@
 """ClipBERT end to end: grid-feature CNN + cross-modal BERT + task heads
-(port of clipbert_tpu/models/clipbert.py, inference path).
+(port of clipbert_tpu/models/clipbert.py).
 
 Reference `ClipBertBaseModel` (`src/modeling/modeling.py:156-238`): text
 embeddings ‖ visual embeddings, visual tokens always visible, 12-layer joint
@@ -23,7 +23,9 @@ from torch import nn
 
 from clipbert_tpu_torch.core.config import ModelConfig
 from clipbert_tpu_torch.core.mesh import Mesh
+from clipbert_tpu_torch.core.rng import RngGen
 from clipbert_tpu_torch.models import bert, resnet, visual_embed
+from clipbert_tpu_torch.ops.dropout import dropout
 from clipbert_tpu_torch.ops.linear import linear
 
 HEAD_TYPES = ("pretrain", "seq_cls", "multi_choice", "regression", "retrieval")
@@ -164,14 +166,28 @@ def base_forward(p: BertBase, cfg: ModelConfig,
                  visual_tokens_grid: torch.Tensor,  # (B, T, H, W, D)
                  compute_dtype=torch.bfloat16,
                  fused_attn: bool = False,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 rngs: Optional[RngGen] = None,
+                 train: bool = False,
+                 remat=False):
     """ClipBertBaseModel.forward (modeling.py:201-238): returns
     (sequence_output (B, Lt+Lv, D), pooled (B, D)). ``fused_attn`` and
-    ``mesh`` as in bert.encoder."""
+    ``mesh`` as in bert.encoder. ``train`` draws the dropout (and pixel
+    sampling) generators from ``rngs`` under the JAX names; ``remat``
+    checkpoints the encoder layers."""
+    rngs = rngs if train else None
+
+    def gen(name):
+        return None if rngs is None else rngs(name)
+
     text_emb = bert.text_embeddings(p.embeddings, text_input_ids, cfg,
-                                    compute_dtype)
+                                    compute_dtype, generator=gen("emb_dropout"))
     vis_emb = visual_embed.visual_embeddings(
-        p.visual_embeddings, visual_tokens_grid.to(compute_dtype), cfg)
+        p.visual_embeddings, visual_tokens_grid.to(compute_dtype), cfg,
+        generator=gen("vis_dropout"),
+        pixel_sampling_generator=(gen("pixel_sampling")
+                                  if cfg.pixel_random_sampling_size > 0
+                                  else None))
     B, Lv = vis_emb.shape[:2]
     full_mask = torch.cat(
         [text_input_mask.float(),
@@ -179,8 +195,10 @@ def base_forward(p: BertBase, cfg: ModelConfig,
         dim=1)
     hidden = torch.cat([text_emb, vis_emb], dim=1)
     bias = bert.extended_attention_mask(full_mask)
-    hidden = bert.encoder(p.encoder, hidden, bias, cfg, fused_attn=fused_attn,
-                          mesh=mesh)
+    hidden = bert.encoder(
+        p.encoder, hidden, bias, cfg, fused_attn=fused_attn, mesh=mesh,
+        dropout_seed=None if rngs is None else rngs.seed("enc_dropout"),
+        remat=remat)
     return hidden, bert.pooler(p.pooler, hidden)
 
 
@@ -191,12 +209,14 @@ def mlp_head(p: MLPHead, pooled: torch.Tensor) -> torch.Tensor:
 
 def cnn_forward(p: resnet.GridFeatBackbone, visual_pixels: torch.Tensor,
                 compute_dtype=torch.bfloat16,
-                use_kernels: Optional[bool] = None) -> torch.Tensor:
+                use_kernels: Optional[bool] = None,
+                remat=False) -> torch.Tensor:
     """(B, T, H, W, 3) preprocessed pixels -> (B, T, Hg, Wg, D) grid feats.
     ``use_kernels``: the CNN's kernel form (resnet.resnet50_forward); None
-    takes it on a CUDA device."""
+    takes it on a CUDA device, which has no backward: training passes
+    False. ``remat`` as in resnet.resnet50_forward."""
     return resnet.grid_feat_forward(p, visual_pixels.to(compute_dtype),
-                                    use_kernels)
+                                    use_kernels, remat)
 
 
 def fold_cnn_bn_scales(model: ClipBert) -> ClipBert:
@@ -222,9 +242,18 @@ def clipbert_forward(model: ClipBert, cfg: ModelConfig,
                      visual_features: Optional[torch.Tensor] = None,
                      group_size: int = 1,
                      fused_attn: bool = False,
-                     mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
-    """The per-clip unit of work, inference only (no dropout; regression's
-    BN on its stored running statistics).
+                     mesh: Optional[Mesh] = None,
+                     train: bool = False,
+                     rngs: Optional[RngGen] = None,
+                     remat=False,
+                     use_kernels: Optional[bool] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The per-clip unit of work. In eval (``train`` False) no dropout runs
+    and regression's BN uses its stored running statistics. ``train``
+    turns on dropout, drawn from ``rngs`` (core/rng.py), pixel random
+    sampling and the regression BN's batch statistics; ``remat`` as in
+    resnet.resnet50_forward and bert.encoder. ``use_kernels`` picks the
+    CNN's form when the batch carries pixels.
 
     batch: text_input_ids (B, Lt), text_input_mask (B, Lt), and
     visual_inputs (B_v, T, H, W, 3) unless ``visual_features`` (precomputed
@@ -241,13 +270,19 @@ def clipbert_forward(model: ClipBert, cfg: ModelConfig,
         raise ValueError(f"unknown head type {head_type!r}")
     if visual_features is None:
         visual_features = cnn_forward(model.cnn, batch["visual_inputs"],
-                                      compute_dtype)
+                                      compute_dtype, use_kernels, remat)
     visual_features = repeat_for_texts(visual_features, group_size)
     tp = model.transformer
     hidden, pooled = base_forward(tp.bert, cfg, batch["text_input_ids"],
                                   batch["text_input_mask"], visual_features,
                                   compute_dtype, fused_attn=fused_attn,
-                                  mesh=mesh)
+                                  mesh=mesh, rngs=rngs, train=train,
+                                  remat=remat)
+
+    def drop(x, name):
+        return dropout(x, cfg.hidden_dropout_prob,
+                       rngs(name) if train and rngs is not None else None)
+
     out: Dict[str, torch.Tensor] = {}
     if head_type == "pretrain":
         txt_len = batch["text_input_mask"].shape[1]
@@ -257,12 +292,19 @@ def clipbert_forward(model: ClipBert, cfg: ModelConfig,
         out["itm_scores"] = bert.itm_logits(tp.cls, pooled)
     elif head_type == "regression":
         rp = tp.regressor
-        h = F.elu(linear(pooled, rp.fc1).float())
-        # BatchNorm1d, eval: the stored running statistics
-        h = (h - rp.bn.mean) * torch.rsqrt(rp.bn.var + 1e-5)
+        h = F.elu(linear(drop(pooled, "head_dropout"), rp.fc1).float())
+        # BatchNorm1d: batch statistics in training, the stored running
+        # statistics in eval
+        if train:
+            mean, var = h.mean(dim=0), h.var(dim=0, unbiased=False)
+        else:
+            mean, var = rp.bn.mean, rp.bn.var
+        h = (h - mean) * torch.rsqrt(var + 1e-5)
         h = h * rp.bn.scale + rp.bn.bias
+        h = drop(h, "reg_dropout")
         out["logits"] = linear(h.to(compute_dtype), rp.fc2).float()
     else:
+        pooled = drop(pooled, "head_dropout")
         out["logits"] = mlp_head(tp.classifier, pooled)
     out["pooled_output"] = pooled
     return out

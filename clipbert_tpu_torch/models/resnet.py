@@ -11,8 +11,10 @@ NCHW, so the permutes at the edges are free). Convolutions are
 ``torch.nn.functional.conv2d`` in the compute dtype, except in the kernel
 form (``use_kernels``), where the stem and the 1x1 convs run the port's
 hand-written CUDA kernels on NHWC buffers. Frozen BN is a
-per-channel (scale, bias) buffer pair; :func:`fold_bn_scales` folds the
-scale into the conv weight for inference. Blocks are detectron2's
+per-channel (scale, bias) buffer pair, never trained (the JAX optimizer
+freezes its leaves); :func:`fold_bn_scales` folds the scale into the conv
+weight for inference. Training runs the cuDNN form on unfolded BN, with
+optional activation checkpointing (``remat``). Blocks are detectron2's
 caffe-style bottlenecks (``stride_in_1x1=True``: the stride sits on the 1x1
 reduce conv), as every config of this repo uses.
 """
@@ -23,6 +25,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from clipbert_tpu_torch.ops import kernels_default
@@ -173,8 +176,19 @@ def _stages(p: ResNet50):
             yield bp, (1 if si == 0 else 2) if bi == 0 else 1
 
 
+REMAT_MODES = (False, True, "stage", "block", "early")
+
+
+def _checkpointed(fn):
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return run
+
+
 def resnet50_forward(p: ResNet50, x: torch.Tensor,
-                     use_kernels: Optional[bool] = None) -> torch.Tensor:
+                     use_kernels: Optional[bool] = None,
+                     remat=False) -> torch.Tensor:
     """(B, H, W, 3) preprocessed pixels -> (B, H/32, W/32, 2048) res5
     features, NHWC (reference backbone + get_conv5_features,
     grid_feat.py:95-97, with RES5_DILATION=1).
@@ -185,9 +199,21 @@ def resnet50_forward(p: ResNet50, x: torch.Tensor,
     form; None picks the kernel form on a CUDA device. Both take folded and
     unfolded BN. The two forms round bf16 at other points (one rounding per
     fused 1x1 against one per conv, bias add and residual add), so they
-    differ by about one bf16 ulp per layer."""
+    differ by about one bf16 ulp per layer.
+
+    ``remat`` trades backward-pass memory for recompute in the cuDNN form
+    (clipbert_tpu/models/resnet.py:252-320; ``torch.utils.checkpoint`` in
+    place of ``jax.checkpoint``): False stores every activation; True or
+    "early" checkpoints the stem, res2 and res3, whose activations are the
+    largest; "stage" the stem and every stage; "block" the stem and every
+    bottleneck."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, not {remat!r}")
     if use_kernels is None:
         use_kernels = kernels_default(x.device)
+    if use_kernels and remat:
+        raise ValueError("remat is a training option; the kernel form has "
+                         "no backward")
     if use_kernels:
         weight = p.stem.conv.weight
         if p.stem.bn.scale is not None:
@@ -196,11 +222,23 @@ def resnet50_forward(p: ResNet50, x: torch.Tensor,
         for bp, stride in _stages(p):
             h = bottleneck_kernels(h, bp, stride)
         return h
-    h = conv2d(_nchw(x), p.stem.conv.weight, stride=2, padding=3)
-    h = torch.relu(frozen_bn(h, p.stem.bn))
-    h = max_pool(h, 3, 2, 1)
-    for bp, stride in _stages(p):
-        h = bottleneck(h, bp, stride)
+
+    def stem_fn(x):
+        h = conv2d(_nchw(x), p.stem.conv.weight, stride=2, padding=3)
+        return max_pool(torch.relu(frozen_bn(h, p.stem.bn)), 3, 2, 1)
+
+    block_fn = _checkpointed(bottleneck) if remat == "block" else bottleneck
+
+    def stage_fn(h, si):
+        for bi, bp in enumerate(getattr(p, f"res{si + 2}")):
+            h = block_fn(h, bp, (1 if si == 0 else 2) if bi == 0 else 1)
+        return h
+
+    h = (_checkpointed(stem_fn) if remat else stem_fn)(x)
+    for si in range(4):
+        stage_remat = (remat == "stage"
+                       or (remat in (True, "early") and si < 2))
+        h = (_checkpointed(stage_fn) if stage_remat else stage_fn)(h, si)
     return _nhwc(h)
 
 
@@ -212,13 +250,14 @@ def grid_encoder_forward(p: GridEncoder, feat: torch.Tensor) -> torch.Tensor:
 
 
 def grid_feat_forward(p: GridFeatBackbone, frames: torch.Tensor,
-                      use_kernels: Optional[bool] = None) -> torch.Tensor:
+                      use_kernels: Optional[bool] = None,
+                      remat=False) -> torch.Tensor:
     """(B, T, H, W, 3) -> (B, T, H/64, W/64, hidden) grid features; the
     frame axis folds into the batch (grid_feat.py:90-102). ``use_kernels``
-    as in :func:`resnet50_forward`."""
+    and ``remat`` as in :func:`resnet50_forward`."""
     B, T, H, W, C = frames.shape
     x = frames.reshape(B * T, H, W, C)
-    feat = resnet50_forward(p.resnet, x, use_kernels)
+    feat = resnet50_forward(p.resnet, x, use_kernels, remat)
     grid = grid_encoder_forward(p.grid_encoder, feat)
     _, Hg, Wg, D = grid.shape
     return grid.reshape(B, T, Hg, Wg, D)

@@ -2,8 +2,8 @@
 
 softmax(QK^T/sqrt(d) + bias)V with an additive mask bias, fp32 softmax, the
 reference BertSelfAttention semantics (`src/modeling/transformers.py:
-202-286`). Attention-probability dropout is train-time only and not part
-of this inference port.
+202-286`), with dropout on the attention probabilities in training (the
+einsum core only: the fused kernel takes dropout-free calls).
 
 Under a tensor-parallel mesh (parallel/sharding.py) the projections hold
 this rank's contiguous block of heads, and the core runs on those heads
@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from clipbert_tpu_torch.core.mesh import Mesh
+from clipbert_tpu_torch.ops.dropout import dropout
 from clipbert_tpu_torch.ops.fused_attention import (
     fused_attention, fused_attention_shard_heads)
 from clipbert_tpu_torch.ops.linear import dense
@@ -39,7 +40,10 @@ def multi_head_attention(hidden: torch.Tensor, p: SelfAttention,
                          num_heads: int,
                          mask_bias: Optional[torch.Tensor] = None,
                          fused: bool = False,
-                         mesh: Optional[Mesh] = None) -> torch.Tensor:
+                         mesh: Optional[Mesh] = None,
+                         dropout_rate: float = 0.0,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
     """hidden (B, L, D) -> context (B, L, D / n_model) in hidden's dtype,
     where n_model is ``mesh``'s model axis (1 without a mesh).
 
@@ -50,7 +54,8 @@ def multi_head_attention(hidden: torch.Tensor, p: SelfAttention,
     ``True`` runs the fused kernel (ops/fused_attention.py), through
     fused_attention_shard_heads on the local heads under a tensor-parallel
     ``mesh``, and anything else takes the einsum path, as does a mask that
-    is not the standard per-key bias (B, 1, 1, L)."""
+    is not the standard per-key bias (B, 1, 1, L), or a call with dropout
+    (``dropout_rate`` > 0 and a ``generator``: the training path)."""
     B, L, D = hidden.shape
     n_model = mesh.n_model if mesh is not None else 1
     if num_heads % n_model:
@@ -68,7 +73,9 @@ def multi_head_attention(hidden: torch.Tensor, p: SelfAttention,
     q, k, v = (t.view(B, L, heads, head_dim)
                for t in qkv.split(Dl, dim=-1))
 
-    use_fused = (fused is True and mask_bias is not None
+    use_fused = (fused is True
+                 and (dropout_rate == 0.0 or generator is None)
+                 and mask_bias is not None
                  and tuple(mask_bias.shape) == (B, 1, 1, L))
     if use_fused:
         scale = 1.0 / head_dim ** 0.5
@@ -85,6 +92,7 @@ def multi_head_attention(hidden: torch.Tensor, p: SelfAttention,
     if mask_bias is not None:
         scores = scores + mask_bias.float()
     probs = torch.softmax(scores, dim=-1)
+    probs = dropout(probs, dropout_rate, generator)
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(hidden.dtype).float(),
                        v.float()).to(hidden.dtype)
     return ctx.reshape(B, L, Dl)

@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from clipbert_tpu_torch.ops import refuse_autograd
+
 # Kernel launches since the process started (or since a caller reset it).
 # Incremented only where the CUDA kernel is launched; TC_LAUNCHES counts
 # those of the tensor-core body and SHARD_HEADS_LAUNCHES those made through
@@ -214,6 +216,7 @@ def _launch(q, k, v, key_bias, scale: float,
     """Launch the kernel on CUDA operands that passed :func:`_check`;
     ``body`` is :func:`_plan`'s, for timing the bodies in turns."""
     global LAUNCHES, TC_LAUNCHES
+    refuse_autograd("fused_attention", q, k, v, key_bias)
     B, S, H, dh = q.shape
     plan = _plan(B, S, H, dh, q.dtype, _aligned16(q, k, v), body)
     bias = key_bias.to(torch.float32).contiguous()

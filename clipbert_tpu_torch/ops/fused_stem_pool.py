@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from clipbert_tpu_torch.ops import refuse_autograd
 from clipbert_tpu_torch.ops.matmul_bn_act import _aligned16, _n_sms
 
 # Kernel launches since the process started (or since a caller reset it).
@@ -168,6 +169,7 @@ def _launch(x, weight, bias, body: Optional[str] = None) -> torch.Tensor:
     """x: contiguous (B, H, W, 3). ``body`` is :func:`_plan`'s, for timing
     the bodies in turns."""
     global LAUNCHES, TC_LAUNCHES
+    refuse_autograd("fused_stem_pool", x, weight, bias)
     B, H, W, _ = x.shape
     Hp, Wp = _out_hw(H, W)
     out = torch.empty((B, Hp, Wp, 64), dtype=x.dtype, device=x.device)

@@ -18,10 +18,39 @@ import torch.distributed as dist
 from torch import nn
 
 
+class _ProductF32(torch.autograd.Function):
+    """The ``out_dtype=float32`` product on CUDA with a backward: torch
+    defines none for that overload. The fp32 cotangent is rounded to the
+    operands' dtype and each gradient is again one product with fp32
+    accumulation, cast once to its operand's dtype (autocast's mixed
+    precision; the JAX package's transpose runs the cotangent in fp32)."""
+
+    @staticmethod
+    def forward(ctx, op, a, b):
+        ctx.op = op
+        ctx.save_for_backward(a, b)
+        return op(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        op, g = ctx.op, g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[1]:
+            ga = op(g, b.transpose(-1, -2),
+                    out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[2]:
+            gb = op(a.transpose(-1, -2), g,
+                    out_dtype=torch.float32).to(b.dtype)
+        return None, ga, gb
+
+
 def _f32_product(op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return op(a, b)
     if a.is_cuda:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _ProductF32.apply(op, a, b)
         return op(a, b, out_dtype=torch.float32)
     return op(a.float(), b.float())
 

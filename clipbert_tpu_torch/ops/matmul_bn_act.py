@@ -38,6 +38,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from clipbert_tpu_torch.ops import refuse_autograd
+
 # Kernel launches since the process started (or since a caller reset it).
 # Incremented only where the CUDA kernel is launched; WG_LAUNCHES counts
 # those of the wgmma body (in LAUNCHES too).
@@ -268,6 +270,7 @@ def _launch(x, w_nk, scale, bias, residual, relu: bool, bhw, stride: int,
     w_nk: (N, K). Returns (B, Ho, Wo, N). ``body`` and ``tile_n`` are
     :func:`_plan`'s, for timing the bodies and tile widths in turns."""
     global LAUNCHES, WG_LAUNCHES
+    refuse_autograd("matmul_bn_act", x, w_nk, scale, bias, residual)
     B, H, W = bhw
     N, K = w_nk.shape
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1

@@ -1,8 +1,9 @@
-"""Shared task-runner plumbing, the parts inference runs (port of
-clipbert_tpu/tasks/common.py): tokenizer/store setup, the pixel constants,
-the compute dtype, the eval loader, the host-to-device batch move with the
-device preprocess, the deferred device-to-host fetch window, the
-inference-time config restore and the deploy checkpoint load."""
+"""Shared task-runner plumbing (port of clipbert_tpu/tasks/common.py):
+tokenizer/store setup, the pixel constants, the compute dtype, the train
+loader with its device preprocess one batch ahead, the eval loader, the
+host-to-device batch move with the device preprocess, the deferred
+device-to-host fetch window, the inference-time config restore and the
+deploy checkpoint load."""
 
 from __future__ import annotations
 
@@ -63,6 +64,45 @@ def device_for(cfg: RunConfig) -> torch.device:
         raise RuntimeError("device cuda requested but CUDA is not available "
                            "(pass --device cpu to run the plain versions)")
     return device
+
+
+def make_batch_preprocess(cfg: RunConfig):
+    """Batch hook for loader.PrefetchLoader: the device resize / pad /
+    normalize (or the plain normalize of uint8 pixels), run as soon as the
+    transfer is issued, one batch ahead of the consuming step."""
+    mean, std = pixel_mean_std(cfg)
+    compute_dtype = compute_dtype_for(cfg)
+
+    def fn(batch: Dict) -> Dict:
+        if "visual_src_hw" in batch:
+            batch = dict(batch)
+            batch["visual_inputs"] = transforms.resize_pad_normalize(
+                batch["visual_inputs"], batch.pop("visual_src_hw"),
+                cfg.max_img_size, mean, std, compute_dtype)
+        elif ("visual_inputs" in batch
+              and batch["visual_inputs"].dtype == torch.uint8):
+            batch = dict(batch)
+            batch["visual_inputs"] = transforms.normalize_pixels(
+                batch["visual_inputs"], mean, std, compute_dtype)
+        return batch
+
+    return fn
+
+
+def build_train_loader(dataset, collate_fn, cfg: RunConfig):
+    """(infinite iterator of device batches, steps per epoch): this
+    process's shuffled share of the dataset, cfg.train_batch_size items a
+    batch (the tail dropped), collated by cfg.n_workers threads, moved to
+    the run's device and preprocessed there one batch ahead."""
+    sampler = loader.ShardedBatchSampler(
+        len(dataset), cfg.train_batch_size, shuffle=True, seed=cfg.seed,
+        process_index=dist.process_index(),
+        process_count=dist.process_count(), drop_last=True)
+    dl = loader.DataLoader(dataset, sampler, collate_fn,
+                           num_workers=cfg.n_workers)
+    pf = loader.PrefetchLoader(dl, device_for(cfg),
+                               preprocess_fn=make_batch_preprocess(cfg))
+    return loader.InfiniteIterator(pf), len(sampler)
 
 
 def build_eval_loader(dataset, collate_fn, cfg: RunConfig, batch_size=None):

@@ -1,5 +1,13 @@
-"""Text-to-video retrieval inference (MSRVTT / DiDeMo / ActivityNet): port
-of clipbert_tpu/tasks/run_video_retrieval.py, ``--do_inference 1`` only.
+"""Text-to-video retrieval (MSRVTT / DiDeMo / ActivityNet): port of
+clipbert_tpu/tasks/run_video_retrieval.py, training and inference.
+
+Training (``--do_inference 0``, the default): MIL over ``train_n_clips``
+random clips a video with mean / max / LSE score aggregation
+(run_video_retrieval.py:379-421), the clips folded into one batch, one
+caption a video with ``itm_neg_size`` random negatives, through
+train/trainer.py; every ``valid_steps`` the trainer validates through
+:func:`inference_retrieval` on the live weights, which on a CUDA device
+runs the port's kernels.
 
 Full-matrix inference: every video scored against every caption, R1/R5/
 R10/MedR/MeanR both directions (reference run_video_retrieval.py:519-625,
@@ -12,12 +20,13 @@ One process drives one device. Under a process group (torchrun, or the
 ``--coordinator_address/--num_processes/--process_id`` topology) each
 process scores every ``process_count``-th video on its own card and the
 rows merge on every process (utils/distributed.py::all_gather_objects),
-as the JAX runner shards eval over hosts. Training is a later slice of
-the port: ``main`` refuses it.
+as the JAX runner shards eval over hosts. Training runs in one process.
 
-Annotation jsonl: eval rows {"vid_id", "txt"}; a caption's id is its line
-index.
+Annotation jsonl: train rows {"vid_id", "txt"}; eval rows {"vid_id",
+"txt"}, a caption's id being its line index.
 
+    python -m clipbert_tpu_torch.tasks.run_video_retrieval \\
+        --config configs/msrvtt_ret_base_resnet50.json [--device cpu]
     python -m clipbert_tpu_torch.tasks.run_video_retrieval \\
         --config configs/msrvtt_ret_base_resnet50.json --do_inference 1 \\
         --output_dir <dir with model_step_N.npz> [--device cpu]
@@ -42,16 +51,94 @@ from clipbert_tpu_torch.core.config import (ModelConfig, RunConfig,
                                             inject_task_attrs,
                                             load_run_config)
 from clipbert_tpu_torch.core.mesh import maybe_init_distributed
-from clipbert_tpu_torch.data import transforms
-from clipbert_tpu_torch.data.datasets import VideoRetrievalEvalDataset
+from clipbert_tpu_torch.data import datasets, transforms
+from clipbert_tpu_torch.data.datasets import (VideoRetrievalEvalDataset,
+                                              VideoRetrievalTrainDataset)
 from clipbert_tpu_torch.evaluation import metrics as eval_metrics
 from clipbert_tpu_torch.models import clipbert
 from clipbert_tpu_torch.tasks import common
-from clipbert_tpu_torch.train import steps
+from clipbert_tpu_torch.train import steps, trainer
 from clipbert_tpu_torch.utils import distributed as dist
 from clipbert_tpu_torch.utils.basic import load_jsonl, save_json
 
 LOGGER = logging.getLogger(__name__)
+
+
+def make_task_settings(cfg: RunConfig) -> steps.TaskSettings:
+    return steps.TaskSettings(
+        head_type="retrieval", num_labels=cfg.num_labels,
+        loss_type=cfg.loss_type, score_agg_func=cfg.score_agg_func,
+        train_n_clips=cfg.train_n_clips,
+        group_size=1 + cfg.itm_neg_size, margin=cfg.margin,
+        remat=cfg.remat)
+
+
+def build_train_datalist(cfg: RunConfig, ann_paths):
+    if isinstance(ann_paths, str):
+        ann_paths = [ann_paths]
+    raw = []
+    for p in ann_paths:
+        raw.extend(load_jsonl(p))
+    for i, d in enumerate(raw):
+        d.setdefault("id", i)
+    grouped = datasets.group_datalist_by_visual(raw, "vid_id")
+    # exactly one caption per video per step (each expands to 1 positive +
+    # itm_neg_size negatives in the dataset)
+    groups = transforms.mk_input_group(grouped, max_n_example_per_group=1,
+                                       is_train=True)
+    return datasets.apply_data_ratio(groups, cfg.data_ratio, cfg.seed)
+
+
+def build_val_dataset(cfg: RunConfig, tokenizer):
+    """The first val dataset's captions and videos, for the trainer's
+    validation, or None."""
+    if not cfg.val_datasets:
+        return None
+    vspec = cfg.val_datasets[0]
+    val_raw = load_jsonl(vspec.txt_paths()[0])
+    for i, d in enumerate(val_raw):
+        d["id"] = i
+    return VideoRetrievalEvalDataset(
+        val_raw, tokenizer, common.setup_store(vspec.img), fps=cfg.fps,
+        num_frm=cfg.num_frm, max_img_size=cfg.max_img_size,
+        max_txt_len=cfg.max_txt_len,
+        ensemble_n_clips=cfg.inference_n_clips,
+        device_preprocess=cfg.device_preprocess)
+
+
+def start_training(cfg: RunConfig, max_steps: Optional[int] = None,
+                   stop_signal=None) -> Dict:
+    """Train on the first train dataset (one caption a video a step) and
+    validate through :func:`inference_retrieval` on the first val
+    dataset; trainer.train's result."""
+    tokenizer = common.setup_tokenizer(cfg)
+    cfg.num_labels = 2 if cfg.loss_type == "ce" else 1
+    model_cfg = inject_task_attrs(common.load_model_config(cfg), cfg)
+    compute_dtype = common.compute_dtype_for(cfg)
+
+    tspec = cfg.train_datasets[0]
+    groups = build_train_datalist(cfg, tspec.txt_paths())
+    train_ds = VideoRetrievalTrainDataset(
+        groups, tokenizer, common.setup_store(tspec.img), fps=cfg.fps,
+        num_frm=cfg.num_frm, frm_sampling_strategy=cfg.frm_sampling_strategy,
+        max_img_size=cfg.max_img_size, max_txt_len=cfg.max_txt_len,
+        itm_neg_size=cfg.itm_neg_size, ensemble_n_clips=cfg.train_n_clips,
+        random_sample_clips=cfg.random_sample_clips, seed=cfg.seed,
+        device_preprocess=cfg.device_preprocess)
+    train_loader, steps_per_epoch = common.build_train_loader(
+        train_ds, datasets.RetrievalCollator(tokenizer, cfg.max_txt_len), cfg)
+    mean, std = common.pixel_mean_std(cfg)
+    spec = trainer.TaskSpec(
+        name="video_retrieval", head_type="retrieval",
+        settings=make_task_settings(cfg), train_loader=train_loader,
+        steps_per_epoch=steps_per_epoch, mean=mean, std=std,
+        max_img_size=cfg.max_img_size)
+    val_ds = build_val_dataset(cfg, tokenizer)
+    if val_ds is not None:
+        spec.validate_fn = lambda model, _eval_fn: inference_retrieval(
+            cfg, model_cfg, model, val_ds, compute_dtype)
+    return trainer.train(cfg, model_cfg, spec, max_steps=max_steps,
+                         stop_signal=stop_signal)
 
 
 def _to_device(arr: Optional[np.ndarray], device: torch.device,
@@ -72,7 +159,8 @@ def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
                         model: clipbert.ClipBert,
                         eval_ds: VideoRetrievalEvalDataset, compute_dtype,
                         stage_stats: Optional[Dict] = None, *,
-                        use_kernels: Optional[bool] = None) -> Dict:
+                        use_kernels: Optional[bool] = None,
+                        fused_attn: Optional[bool] = None) -> Dict:
     """Full (n_videos x n_captions) score matrix with cached visual features.
 
     Scores are the softmax positive-class probability for ce heads and the
@@ -104,7 +192,8 @@ def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
                             score_agg_func=cfg.score_agg_func,
                             train_n_clips=cfg.inference_n_clips)
     encode_fn = steps.make_visual_encode_step(compute_dtype, use_kernels)
-    prob_fn = steps.make_text_prob_step(model_cfg, ts, compute_dtype)
+    prob_fn = steps.make_text_prob_step(model_cfg, ts, compute_dtype,
+                                        fused_attn)
     mean, std = common.pixel_mean_std(cfg)
 
     caps = eval_ds.encode_all_captions()
@@ -265,12 +354,9 @@ def main(argv=None) -> Dict:
     cfg = load_run_config(argv)
     # join the launch's process group before the device is first touched
     maybe_init_distributed(cfg)
-    if not cfg.do_inference:
-        raise SystemExit(
-            "clipbert_tpu_torch.tasks.run_video_retrieval runs inference "
-            "only (--do_inference 1); retrieval training is not ported yet "
-            "(train with clipbert_tpu.tasks.run_video_retrieval)")
-    return start_inference(cfg)
+    if cfg.do_inference:
+        return start_inference(cfg)
+    return start_training(cfg)
 
 
 if __name__ == "__main__":

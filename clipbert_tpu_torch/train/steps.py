@@ -1,7 +1,16 @@
-"""Inference steps (port of clipbert_tpu/train/steps.py, the parts the
-serving and eval paths run: the clip-folded ``mil_forward`` and the eval
-steps built on it, the pretraining eval step, the cached-feature encode and
-scoring steps, and the video-QA and QA answer steps).
+"""Train and inference steps (port of clipbert_tpu/train/steps.py): the
+clip-folded ``mil_forward`` in its eval form and its train form, the
+losses, the train step with gradient accumulation and the schedules, the
+eval steps, the pretraining eval step, the cached-feature encode and
+scoring steps, and the video-QA and QA answer steps.
+
+Training runs the plain forms, as the JAX train step does: the cuDNN CNN
+and the einsum attention core (no kernel of the port has a backward; the
+wrappers refuse a launch under autograd). Per-step semantics follow the
+reference (run_video_retrieval.py:396-421, run_video_qa.py:455-560): the
+clip-axis fold, clip aggregation by mean, max or LSE, the 8-group AdamW
+with the schedules evaluated at the post-increment step, clipping by global
+norm, and micro-batches accumulated in fp32 and averaged.
 
 The JAX steps are jitted programs memoized per configuration; here a step
 is a plain closure run eagerly under ``torch.inference_mode``. A process
@@ -15,21 +24,23 @@ split one program over the devices.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from clipbert_tpu_torch.core.config import ModelConfig
 from clipbert_tpu_torch.core.mesh import Mesh
+from clipbert_tpu_torch.core.rng import RngGen, derive_seed
 from clipbert_tpu_torch.models import clipbert
 from clipbert_tpu_torch.ops import kernels_default
+from clipbert_tpu_torch.train import optim, sched
+from clipbert_tpu_torch.train.optim import AdamWState, OptimConfig
 
 
 @dataclass(frozen=True)
 class TaskSettings:
-    """Static per-task step configuration (the fields the inference steps
-    read)."""
+    """Static per-task step configuration."""
 
     head_type: str                  # pretrain|seq_cls|multi_choice|regression|retrieval
     num_labels: int = 2
@@ -39,6 +50,101 @@ class TaskSettings:
     group_size: int = 1             # texts per visual
     use_mlm: bool = True
     use_itm: bool = True
+    margin: float = 0.2             # rank loss margin
+    scale_loss_by_num_labels: bool = False  # VQA bce convention
+    remat: Any = False   # False|True|'stage'|'block'|'early' (training)
+
+
+@dataclass(frozen=True)
+class ScheduleSettings:
+    """LR schedule configuration for the two parameter families."""
+
+    learning_rate: float = 5e-5
+    cnn_learning_rate: float = 5e-5
+    decay: str = "linear"
+    cnn_decay: str = "linear"
+    num_train_steps: int = 1000
+    warmup_ratio: float = 0.1
+    step_decay_epochs: Optional[Tuple[int, ...]] = None
+    cnn_step_decay_epochs: Optional[Tuple[int, ...]] = None
+    steps_per_epoch: int = 0  # needed only for multi_step decay
+
+    def lrs(self, global_step):
+        """(transformer lr, cnn lr) at ``global_step``, fp32."""
+        epoch = (sched.f32(global_step) / sched.f32(self.steps_per_epoch)
+                 if self.steps_per_epoch else sched.f32(0.0))
+        lr_t = sched.get_lr(global_step, self.decay, self.learning_rate,
+                            self.num_train_steps, self.warmup_ratio,
+                            self.step_decay_epochs, epoch)
+        lr_c = sched.get_lr(global_step, self.cnn_decay,
+                            self.cnn_learning_rate, self.num_train_steps,
+                            self.warmup_ratio, self.cnn_step_decay_epochs,
+                            epoch)
+        return lr_t, lr_c
+
+
+@dataclass
+class TrainState:
+    """The model (its parameters are the trained weights, updated in
+    place) and the optimizer state."""
+    model: clipbert.ClipBert
+    opt: AdamWState
+
+
+def init_train_state(model: clipbert.ClipBert,
+                     meta: Dict[str, optim.GroupMeta]) -> TrainState:
+    """Marks the trainable parameters (the rest stop tracking gradients)
+    and allocates the optimizer state."""
+    for n, p in model.named_parameters():
+        p.requires_grad_(meta[n].trainable)
+    return TrainState(model, optim.init_adamw_state(model, meta))
+
+
+def _mil_forward(model, cfg, ts, batch, compute_dtype, use_kernels,
+                 fused_attn, train=False, rngs=None, remat=False):
+    vis = batch["visual_inputs"]
+    B_v = vis.shape[0]
+    nc = ts.train_n_clips
+    nf = vis.shape[1] // nc
+    H, W, C = vis.shape[2:]
+    G = ts.group_size
+    vis = vis.reshape(B_v, nc, nf, H, W, C).transpose(0, 1)
+    vis = vis.reshape(nc * B_v, nf, H, W, C)
+    feats = clipbert.cnn_forward(model.cnn, vis, compute_dtype, use_kernels,
+                                 remat)
+    if G > 1:
+        # fan out to texts: consecutive repeat inside each clip block
+        feats = feats.reshape((nc, B_v) + feats.shape[1:])
+        feats = feats.repeat_interleave(G, dim=1)
+        feats = feats.reshape((nc * B_v * G,) + feats.shape[2:])
+    B_t = batch["text_input_ids"].shape[0]
+    if B_t != B_v * G:
+        raise ValueError(f"{B_t} texts for {B_v} visuals x group {G}")
+    out = clipbert.clipbert_forward(
+        model, cfg, {"text_input_ids": batch["text_input_ids"].repeat(nc, 1),
+                     "text_input_mask": batch["text_input_mask"].repeat(nc, 1)},
+        ts.head_type, compute_dtype=compute_dtype, visual_features=feats,
+        fused_attn=fused_attn, train=train, rngs=rngs, remat=remat)
+    logits = out["logits"]                                  # (nc * B_t, L)
+    if ts.head_type == "multi_choice":
+        logits = logits.reshape(nc, B_t // ts.num_labels, ts.num_labels)
+    else:
+        logits = logits.reshape(nc, B_t, -1)
+    return logits.transpose(0, 1)
+
+
+def mil_forward_train(model: clipbert.ClipBert, cfg: ModelConfig,
+                      ts: TaskSettings, batch: Dict[str, torch.Tensor],
+                      rngs: Optional[RngGen],
+                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The train form of :func:`mil_forward` (clipbert_tpu/train/steps.py:
+    116-165 with train=True), under autograd: dropout from ``rngs``,
+    ``ts.remat``, and the plain forms passed explicitly (use_kernels=False,
+    fused_attn=False) whatever the device, as the JAX train step runs the
+    XLA CNN and the einsum core."""
+    return _mil_forward(model, cfg, ts, batch, compute_dtype,
+                        use_kernels=False, fused_attn=False, train=True,
+                        rngs=rngs, remat=ts.remat)
 
 
 @torch.inference_mode()
@@ -61,34 +167,8 @@ def mil_forward(model: clipbert.ClipBert, cfg: ModelConfig,
     ``use_kernels`` as in clipbert.cnn_forward. ``fused_attn`` picks the
     attention core; the default is the einsum core, as in the JAX bench
     unit (bench.py:81-86)."""
-    vis = batch["visual_inputs"]
-    B_v = vis.shape[0]
-    nc = ts.train_n_clips
-    nf = vis.shape[1] // nc
-    H, W, C = vis.shape[2:]
-    G = ts.group_size
-    vis = vis.reshape(B_v, nc, nf, H, W, C).transpose(0, 1)
-    vis = vis.reshape(nc * B_v, nf, H, W, C)
-    feats = clipbert.cnn_forward(model.cnn, vis, compute_dtype, use_kernels)
-    if G > 1:
-        # fan out to texts: consecutive repeat inside each clip block
-        feats = feats.reshape((nc, B_v) + feats.shape[1:])
-        feats = feats.repeat_interleave(G, dim=1)
-        feats = feats.reshape((nc * B_v * G,) + feats.shape[2:])
-    B_t = batch["text_input_ids"].shape[0]
-    if B_t != B_v * G:
-        raise ValueError(f"{B_t} texts for {B_v} visuals x group {G}")
-    out = clipbert.clipbert_forward(
-        model, cfg, {"text_input_ids": batch["text_input_ids"].repeat(nc, 1),
-                     "text_input_mask": batch["text_input_mask"].repeat(nc, 1)},
-        ts.head_type, compute_dtype=compute_dtype, visual_features=feats,
-        fused_attn=fused_attn)
-    logits = out["logits"]                                  # (nc * B_t, L)
-    if ts.head_type == "multi_choice":
-        logits = logits.reshape(nc, B_t // ts.num_labels, ts.num_labels)
-    else:
-        logits = logits.reshape(nc, B_t, -1)
-    return logits.transpose(0, 1)
+    return _mil_forward(model, cfg, ts, batch, compute_dtype, use_kernels,
+                        fused_attn)
 
 
 def aggregate_clips(logits: torch.Tensor, agg: str) -> torch.Tensor:
@@ -111,6 +191,171 @@ def pool_clip_logits(logits: torch.Tensor, agg: str) -> torch.Tensor:
     if agg == "lse":
         return lse_pooled_logits(logits)
     return aggregate_clips(logits, agg)
+
+
+def lse_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """CE over LSE-pooled clip logits (run_video_retrieval.py:415-418):
+    loss[b] = LSE_{t,l}(logits[b]) - LSE_t(logits[b, :, label_b])."""
+    logits = logits.float()
+    B = logits.shape[0]
+    all_lse = torch.logsumexp(logits.reshape(B, -1), dim=-1, keepdim=True)
+    per_label = torch.logsumexp(logits, dim=1)              # (B, L)
+    out = all_lse - per_label
+    return torch.gather(out, -1, labels.reshape(-1, 1).long())[:, 0]
+
+
+def task_loss(cfg: ModelConfig, ts: TaskSettings,
+              batch: Dict[str, torch.Tensor], clip_logits: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(B, nc, L) per-clip logits + labels -> (scalar loss, metrics)."""
+    labels = batch["labels"]
+    metrics: Dict[str, torch.Tensor] = {}
+    if ts.score_agg_func == "lse":
+        loss = lse_loss(clip_logits, labels).mean()
+        pooled = lse_pooled_logits(clip_logits)
+    else:
+        pooled = aggregate_clips(clip_logits, ts.score_agg_func)
+        if ts.head_type == "retrieval" and ts.loss_type == "rank":
+            sample_size = batch["visual_inputs"].shape[0]
+            loss = clipbert.retrieval_rank_loss(
+                pooled, sample_size, ts.margin).mean()
+        elif ts.head_type == "multi_choice":
+            loss = clipbert.cross_entropy(pooled, labels).mean()
+        elif ts.num_labels == 1:
+            # single-logit heads regress whatever the loss_type (reference
+            # modeling.py calc_loss: num_labels == 1 -> MSELoss)
+            loss = clipbert.mse(pooled, labels).mean()
+        elif ts.loss_type == "bce":
+            loss = clipbert.bce_with_logits(pooled, labels).mean()
+            if ts.scale_loss_by_num_labels:
+                loss = loss * ts.num_labels   # run_vqa.py:355-356
+        else:
+            loss = clipbert.cross_entropy(
+                pooled.reshape(-1, pooled.shape[-1]),
+                labels.reshape(-1)).mean()
+    if ts.head_type != "retrieval" and ts.loss_type != "bce" \
+            and pooled.dim() == 2 and pooled.shape[-1] > 1 \
+            and labels.dim() == 1:
+        metrics["acc"] = (pooled.argmax(-1) == labels).float().mean()
+    return loss, metrics
+
+
+def pretrain_loss(cfg: ModelConfig, ts: TaskSettings,
+                  model: clipbert.ClipBert, batch: Dict[str, torch.Tensor],
+                  rngs: Optional[RngGen], train: bool, compute_dtype
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """mlm_loss.mean() + itm_loss.mean() (run_pretrain.py:387-395) with the
+    MLM token and ITM accuracies; the plain forms, as mil_forward_train."""
+    out = clipbert.clipbert_forward(
+        model, cfg, batch, "pretrain", compute_dtype=compute_dtype,
+        group_size=ts.group_size, train=train, rngs=rngs,
+        remat=ts.remat if train else False, use_kernels=False,
+        fused_attn=False)
+    losses = clipbert.pretrain_losses(
+        cfg, out,
+        batch.get("mlm_labels") if ts.use_mlm else None,
+        batch.get("itm_labels") if ts.use_itm else None)
+    total = torch.zeros((), dtype=torch.float32,
+                        device=batch["text_input_ids"].device)
+    metrics: Dict[str, torch.Tensor] = {}
+    if "mlm_loss" in losses:
+        mlm = losses["mlm_loss"].mean()
+        metrics["mlm_loss"] = mlm
+        # MLM token accuracy over masked positions (run_pretrain.py:231-241)
+        mlm_labels = batch["mlm_labels"].reshape(-1).long()
+        valid = mlm_labels != -100
+        pred = out["mlm_scores"].reshape(-1, cfg.vocab_size).argmax(-1)
+        metrics["mlm_acc"] = (torch.where(valid, pred == mlm_labels, False)
+                              .sum() / valid.sum().clamp(min=1))
+        total = total + mlm
+    if "itm_loss" in losses:
+        itm = losses["itm_loss"].mean()
+        metrics["itm_loss"] = itm
+        itm_labels = batch["itm_labels"].reshape(-1)
+        pred = out["itm_scores"].argmax(-1)
+        metrics["itm_acc"] = (pred == itm_labels).float().mean()
+        total = total + itm
+    return total, metrics
+
+
+def compute_loss(model: clipbert.ClipBert, cfg: ModelConfig,
+                 ts: TaskSettings, batch: Dict[str, torch.Tensor],
+                 step_seed: Optional[int], train: bool,
+                 compute_dtype=torch.bfloat16
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss of one (micro-)batch and its metrics; ``step_seed`` seeds
+    the step's dropout (core/rng.py) when ``train``."""
+    rngs = RngGen(step_seed if train else None,
+                  batch["text_input_ids"].device)
+    if ts.head_type == "pretrain":
+        return pretrain_loss(cfg, ts, model, batch, rngs, train,
+                             compute_dtype)
+    if train:
+        clip_logits = mil_forward_train(model, cfg, ts, batch, rngs,
+                                        compute_dtype)
+    else:
+        clip_logits = _mil_forward(model, cfg, ts, batch, compute_dtype,
+                                   use_kernels=False, fused_attn=False)
+    return task_loss(cfg, ts, batch, clip_logits)
+
+
+def make_train_step(cfg: ModelConfig, ts: TaskSettings, oc: OptimConfig,
+                    ss: ScheduleSettings, meta: Dict[str, optim.GroupMeta],
+                    accum_steps: int = 1,
+                    compute_dtype=torch.bfloat16) -> Callable:
+    """The train step: step(state, batch, step_seed) -> (state, metrics),
+    updating ``state`` in place. With ``accum_steps`` > 1 every batch
+    tensor carries a leading (accum_steps, ...) micro-batch axis; each
+    micro-batch's gradients add into the fp32 ``.grad`` (from zero) and
+    the sum is divided by ``accum_steps``, the loss and metrics averaged,
+    as the JAX step's scan does (clipbert_tpu/train/steps.py:315-333). The
+    micro-batches' dropout seeds are derived from ``step_seed``. The
+    schedules are evaluated at the post-increment step ``opt.step + 1``
+    (run_video_qa.py:515-525). Metrics are device tensors (no sync) plus
+    the two lrs."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             step_seed: int):
+        model = state.model
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        with torch.enable_grad():
+            if accum_steps == 1:
+                loss, metrics = compute_loss(model, cfg, ts, batch,
+                                             step_seed, True, compute_dtype)
+                loss.backward()
+                loss = loss.detach()
+            else:
+                lsum, ms = 0.0, []
+                for i in range(accum_steps):
+                    mb = {k: v[i] for k, v in batch.items()}
+                    l, m = compute_loss(model, cfg, ts, mb,
+                                        derive_seed(step_seed, i), True,
+                                        compute_dtype)
+                    l.backward()
+                    lsum = lsum + l.detach()
+                    ms.append(m)
+                loss = lsum / accum_steps
+                metrics = {k: torch.stack([m[k].detach().float()
+                                           for m in ms]).mean()
+                           for k in ms[0]}
+        grads = {}
+        for n, p in params.items():
+            if not meta[n].trainable:
+                continue
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[n] = g / accum_steps if accum_steps > 1 else g
+            p.grad = None
+        lr_t, lr_c = ss.lrs(state.opt.step + 1)
+        grad_norm = optim.adamw_update(params, grads, state.opt, meta, oc,
+                                       lr_t, lr_c)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=loss, grad_norm=grad_norm, lr=float(lr_t),
+                       cnn_lr=float(lr_c))
+        return state, metrics
+
+    return step
 
 
 def make_visual_encode_step(compute_dtype=torch.bfloat16,

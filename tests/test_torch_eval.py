@@ -223,7 +223,8 @@ def test_inference_retrieval_matches_jax(world, jax_eval, device_preprocess):
     assert stats["n_videos"] == N_VIDEOS
 
 
-def test_cli_runs_a_jax_deploy_checkpoint(world, jax_eval, tmp_path):
+def test_cli_runs_a_jax_deploy_checkpoint(world, jax_eval, tmp_path,
+                                          monkeypatch):
     """``main --do_inference 1 --device cpu`` on a model_step_N.npz written
     by the JAX package's ModelSaver: the metrics file is written and the
     scores equal the JAX runner's on the same checkpoint."""
@@ -242,5 +243,8 @@ def test_cli_runs_a_jax_deploy_checkpoint(world, jax_eval, tmp_path):
     # RunConfig's default is device_preprocess=True
     np.testing.assert_allclose(got["score_matrix"],
                                jax_eval(True)["score_matrix"], **TOL)
-    with pytest.raises(SystemExit):
-        rvr.main(argv)                      # training is not ported
+    # without --do_inference, main trains (tests/test_torch_train_trainer.py)
+    calls = []
+    monkeypatch.setattr(rvr, "start_training", lambda cfg: calls.append(cfg))
+    rvr.main(argv)
+    assert len(calls) == 1 and not calls[0].do_inference

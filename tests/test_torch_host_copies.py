@@ -32,7 +32,19 @@ COPIES = {
     "evaluation/metrics.py": (None, False),
     "utils/basic.py": (["load_json", "save_json", "load_jsonl",
                         "flat_list_of_lists"], False),
-    "data/loader.py": (["ShardedBatchSampler", "DataLoader"], False),
+    "data/loader.py": (["ShardedBatchSampler", "DataLoader",
+                        "InfiniteIterator"], False),
+    "utils/logger.py": (["_LOG_FMT", "_DATE_FMT", "LOGGER",
+                         "add_log_to_file", "NoOp", "TensorboardLogger",
+                         "TB_LOGGER", "RunningMeter"], False),
+    "utils/profiling.py": (["StepTimer"], False),
+    "ckpt/checkpoint.py": (["flatten_tree", "unflatten_tree",
+                            "fetch_tree_host", "_write_npz", "save_tree",
+                            "_WRITER", "_PENDING", "_writer",
+                            "_submit_write", "drain_writes", "load_tree",
+                            "load_with_mismatch", "ModelSaver",
+                            "TrainingRestorer", "save_training_meta",
+                            "load_training_args"], False),
     "core/config.py": (["ModelConfig", "DatasetSpec", "RunConfig", "_coerce",
                         "load_run_config", "inject_task_attrs"], False),
     "data/transforms.py": (["get_resize_size", "resize_frames", "pad_frames",
@@ -40,6 +52,7 @@ COPIES = {
                             "IMAGENET_STD_1", "_BUCKET", "collate_visual",
                             "chunk_list", "mk_input_group"], False),
     "data/datasets.py": (["flat_list_of_lists", "BaseDataset",
+                          "VideoRetrievalTrainDataset",
                           "VideoRetrievalEvalDataset", "RetrievalCollator",
                           "MSRVTTMCEvalDataset", "OPEN_ENDED_QA",
                           "ANSWER_TYPE2IDX", "VideoQADataset",
@@ -70,6 +83,12 @@ KNOWN = {
         "eval form: refuses is_train=True",
     "data/datasets.py:VQADataset.__getitem__":
         "eval form: the original's train branch left out",
+    "utils/logger.py:TensorboardLogger.create":
+        "where the tensorboard package is missing (torch.utils.tensorboard "
+        "needs it) the scalars go to log/scalars.jsonl through "
+        "JsonlScalarWriter, with a warning, rather than fail or be dropped",
+    "utils/logger.py:JsonlScalarWriter":
+        "the scalar writer TensorboardLogger.create falls back to",
 }
 
 

@@ -73,7 +73,14 @@ NEW_MODULES = ["clipbert_tpu_torch.core.mesh",
                "clipbert_tpu_torch.data.loader",
                "clipbert_tpu_torch.tasks.run_msrvtt_mc",
                "clipbert_tpu_torch.tasks.run_video_qa",
-               "clipbert_tpu_torch.tasks.run_vqa"]
+               "clipbert_tpu_torch.tasks.run_vqa",
+               "clipbert_tpu_torch.ops.dropout",
+               "clipbert_tpu_torch.core.rng",
+               "clipbert_tpu_torch.train.sched",
+               "clipbert_tpu_torch.train.optim",
+               "clipbert_tpu_torch.train.trainer",
+               "clipbert_tpu_torch.utils.logger",
+               "clipbert_tpu_torch.utils.profiling"]
 _CHECK = _CHECK.replace("NEW_MODULES", repr(NEW_MODULES))
 
 
