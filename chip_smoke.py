@@ -128,7 +128,11 @@ Phases; any failure raises and the script exits non-zero:
     and times at the QA shapes as ``qa_launches``, ``qa_max_abs_err`` and
     ``qa_shapes``; phase 16's launches as ``train_launches``, phase 17's
     as ``train17_launches`` and its worst error at the validations' shapes
-    as ``train17_max_abs_err``), then {"ok": true, "device": {...}}.
+    as ``train17_max_abs_err``; phase 18b's validation launches over both
+    ranks as ``train18_launches`` and its worst error as
+    ``train18_max_abs_err``; phase 19's int8 requests' launches as
+    ``int8_launches`` and verify_ckpt's as ``verify_ckpt_launches``),
+    then {"ok": true, "device": {...}}.
 
 The ranks of phases 10 and 11 share the one card, so their process group
 runs over gloo, passed explicitly (NCCL refuses two ranks on one device):
@@ -183,6 +187,40 @@ fails or outlives its phase's timeout fails the script.
     are strict: VQAScorer refuses the pretrained .pt, which has no head,
     and loads a finetuned one; its deploy .npz loaded by strict
     setup_model and by the earlier loader, timed in turns, bit-equal.
+18. (after phase 17) training across processes. 18a, at 16a's width in
+    fp32: a 1-rank NCCL group on cuda:0 whose step on the group's mesh
+    (gradients all-reduced through NCCL) is bit-identical to the step with
+    no mesh (cuDNN deterministic; two no-mesh steps checked equal first);
+    then 2 ranks sharing the card over gloo, data-parallel (2 x 1) on the
+    halves of the global batch and tensor-parallel (1 x 2) on the whole,
+    each within 16a's bounds of one process on the global batch, each data
+    group's replicas bit-identical after the update. 18b: run_video_
+    retrieval's training through its CLI flags (--coordinator_address
+    file://... --num_processes 2 --process_id i, CLIPBERT_DIST_BACKEND
+    gloo) on 2 ranks x 8 videos (the config's 16 a step) x 8 clips x 2
+    frames at 448^2, bf16, for 2 updates and one validation sharded over
+    the ranks. Counts from 0 in each rank: no kernel in a train step; the
+    validation 12 tc attention launches a caption minibatch, 36 wg + 1 tc
+    stem an encode. The ranks' losses, final weights and moments and
+    merged matrices are bit-identical; the merged matrix is bit-identical
+    to one process validating rank 0's deploy checkpoint; each kernel
+    against its plain version at every shape the validations gave it.
+    Prints ms per update, the gradient all-reduce's ms and peak memory per
+    rank.
+19. (after phase 18) int8 scoring and the checkpoint harness. 19a-b:
+    RetrievalScorer(quantize=True) at 1 and 16 clips and VQAScorer(
+    quantize=True) (3129 answers, 768 px) at full width beside their bf16
+    scorers on the same weights. Counts from 0 per int8 request: attention
+    12 times on its body, 36 wg 1x1 convs, one tc stem. Each int8 product
+    shape (ops/linear.py::int_mm, the padded ones included: the pooler
+    and head rows, N = 2, N = 3129) bit-identical to the CPU's on the same
+    operands; the int8 probabilities within 0.08 of bf16's; p50 request
+    latency at 1, 5 and 32 captions in turns; the transformer denses'
+    bytes both ways. 19c: verify_ckpt.run_verification on a deploy .npz of
+    phase 7's model over phase 7's store and captions (strict load, BN
+    folded, on the card): its R@K equal to phase 7's; counts from 0: 12
+    tc attention launches a caption minibatch, 36 wg + 1 tc stem an
+    encode.
 
 Imports nothing of JAX. Needs one card, nvcc and a few minutes.
 """
@@ -3513,6 +3551,577 @@ def phase_scorer_loads(d, ckpts, a2l_path):
           + " s (in turns new, old, old, new); the models bit-equal")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training across processes
+# ---------------------------------------------------------------------------
+
+# 18a: the narrow fp32 step of 16a (hidden 128, 2 layers, the full
+# ResNet-50 at 64^2, TF32 off) on a global batch of DP_VISUALS visuals x
+# 2 clips, 2 captions each; the reference is one process's step on the card
+# on the whole batch, and the bounds are 16a's (a gradient read from the
+# first update's moment, mu = (1 - b1) g)
+DP_VISUALS = 4
+DP_SCHED = dict(learning_rate=1e-3, cnn_learning_rate=1e-3,
+                num_train_steps=10)
+DP_OPT = dict(learning_rate=1e-3, cnn_learning_rate=1e-3, grad_norm=5.0)
+# 18b: the config's 16 videos a step split over 2 processes on the one
+# card, for TRAIN18_STEPS updates and one validation
+TRAIN18_RANKS, TRAIN18_STEPS = 2, 2
+
+
+def _dp_setup(vocab_size):
+    """18a's config and task settings, the seeded model (on the CPU, the
+    same in every process) and the global batch."""
+    cfg = ModelConfig(vocab_size=vocab_size, **TRAIN_CHECK_KW)
+    ts = steps.TaskSettings(head_type="retrieval", score_agg_func="lse",
+                            train_n_clips=2, group_size=2)
+    model = clipbert.init_clipbert(
+        cfg, generator=torch.Generator().manual_seed(18), device="cpu")
+    rng = np.random.default_rng(18)
+    n = DP_VISUALS * ts.group_size
+    ids = rng.integers(1, vocab_size, (n, 12))
+    mask = np.ones_like(ids)
+    mask[:, 9:] = 0
+    batch = {"visual_inputs": (rng.standard_normal(
+                 (DP_VISUALS, 2, 64, 64, 3)) * 50).astype(np.float32),
+             "text_input_ids": ids, "text_input_mask": mask,
+             "labels": np.tile([1, 0], DP_VISUALS)}
+    return cfg, ts, model, batch
+
+
+def _dp_step(cfg, ts, model, batch, mesh, seed=0):
+    """One make_train_step update of a copy of ``model`` on the card on
+    ``batch`` (this rank's share of it under a data-parallel mesh; the
+    model cut to this rank's shards under a tensor-parallel one). Returns
+    (loss, grad norm, the moments mu, a digest of every replicated
+    tensor, the step's kernel launches)."""
+    import copy
+    from clipbert_tpu_torch.train import optim, trainer
+    from clipbert_tpu_torch.utils.distributed import tensors_digest
+    model = copy.deepcopy(model).cuda()
+    if mesh is not None:
+        shard_model(model, mesh)
+        n, i = mesh.n_data, mesh.data_idx
+        b_v = DP_VISUALS // n
+        v = slice(i * b_v, (i + 1) * b_v)
+        t = slice(i * b_v * ts.group_size, (i + 1) * b_v * ts.group_size)
+        batch = {k: x[v if k == "visual_inputs" else t]
+                 for k, x in batch.items()}
+    oc = optim.OptimConfig(**DP_OPT)
+    meta = optim.build_group_meta(model, oc)
+    state = steps.init_train_state(model, meta)
+    step = steps.make_train_step(cfg, ts, oc, steps.ScheduleSettings(
+        **DP_SCHED), meta, compute_dtype=torch.float32, mesh=mesh)
+    before = _counts()
+    state, m = step(state, {k: torch.from_numpy(x).cuda()
+                            for k, x in batch.items()}, seed)
+    launched = sum(_counts()) - sum(before)
+    return (float(m["loss"]), float(m["grad_norm"]),
+            {n: t.cpu() for n, t in state.opt.mu.items()},
+            tensors_digest(trainer.replica_tensors(state)), launched)
+
+
+def _dp_rank(rank, world, model_parallel, vocab_size):
+    """18a in a spawned rank on cuda:0. One rank over NCCL: the step with
+    no mesh, with the group's 1 x 1 mesh (its all-reduces through NCCL)
+    and with no mesh again, cuDNN deterministic; more ranks over gloo: the
+    step on a (world / model_parallel, model_parallel) mesh."""
+    _rank_setup()
+    cfg, ts, model, batch = _dp_setup(vocab_size)
+    if world == 1:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        mesh = make_mesh()
+        runs = [_dp_step(cfg, ts, model, batch, m)
+                for m in (None, mesh, None)]
+        return {"runs": runs, "backend": torch.distributed.get_backend()}
+    mesh = make_mesh(model_parallel)
+    return {"step": _dp_step(cfg, ts, model, batch, mesh),
+            "idx": (mesh.data_idx, mesh.model_idx),
+            "backend": torch.distributed.get_backend()}
+
+
+def phase_dp_step(tok, d):
+    """18a. Returns the number of groups checked."""
+    from clipbert_tpu_torch.parallel import tp_split_dim
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, ts, model, batch = _dp_setup(len(tok))
+    b1 = 0.9                          # OptimConfig's betas[0]
+    _reset_counts()
+    loss, norm, mu, _, launched = _dp_step(cfg, ts, model, batch, None)
+    _expect("18a reference step, kernels", launched, 0)
+    t0 = time.perf_counter()
+    one = spawn_ranks(_dp_rank, 1, (1, len(tok)), backend="nccl",
+                      workdir=os.path.join(d, "dp1"),
+                      timeout_s=RANK_TIMEOUT_S, threads=2)[0]
+    (la, na, mua, da, ka), (lb, nb, mub, db, kb), (lc, nc_, _, dc, _) = \
+        one["runs"]
+    if one["backend"] != "nccl":
+        raise AssertionError(f"18a: the 1-rank group ran {one['backend']}")
+    if da != dc:
+        raise AssertionError("18a: two no-mesh steps differ on the card "
+                             "with cuDNN deterministic")
+    if (la, na, da) != (lb, nb, db) or ka or kb:
+        raise AssertionError(f"18a: the NCCL group's step (loss {lb}, norm "
+                             f"{nb}) differs from the no-group step (loss "
+                             f"{la}, norm {na}), or launched a kernel")
+    print(f"18a one rank over NCCL on cuda:0 ({time.perf_counter() - t0:.1f}"
+          f" s from spawn to join): the step on the group's 1 x 1 mesh "
+          f"(gradients all-reduced through NCCL, metrics reduced) is "
+          f"bit-identical to the step with no mesh (loss {lb:.7f}, grad norm "
+          f"{nb:.7e}, every parameter and moment: digest {db[:16]}), cuDNN "
+          f"deterministic; 0 kernel launches")
+    for world, model_parallel in ((2, 1), (2, 2)):
+        n_data = world // model_parallel
+        what = f"18a {n_data} data x {model_parallel} model"
+        t0 = time.perf_counter()
+        outs = spawn_ranks(_dp_rank, world, (model_parallel, len(tok)),
+                           backend="gloo",
+                           workdir=os.path.join(d, f"dp{world}x"
+                                                f"{model_parallel}"),
+                           timeout_s=RANK_TIMEOUT_S, threads=2)
+        worst = {"cnn": 0.0, "transformer": 0.0}
+        digests = {}
+        for out in outs:
+            lr_, nr, mur, dr, kr = out["step"]
+            di, mi = out["idx"]
+            _expect(f"{what} rank at {(di, mi)}, kernels", kr, 0)
+            digests.setdefault(mi, set()).add(dr)
+            for w, (a, b) in (("loss", (lr_, loss)),
+                              ("grad norm", (nr, norm))):
+                if abs(a - b) > TRAIN_LOSS_RTOL * abs(b):
+                    raise AssertionError(f"{what} {w}: {a} vs one process "
+                                         f"{b}")
+            for n, t in mur.items():
+                want = mu[n]
+                dim = tp_split_dim(n)
+                if dim is not None and model_parallel > 1:
+                    want = want.chunk(model_parallel, dim)[mi]
+                part = "cnn" if n.startswith("cnn.") else "transformer"
+                worst[part] = max(worst[part], _tree_gap(
+                    f"{what} {n}", t / (1 - b1), want / (1 - b1),
+                    TRAIN_CNN_REL if part == "cnn" else TRAIN_BERT_REL,
+                    TRAIN_GRAD_FLOOR * norm))
+        if any(len(v) != 1 for v in digests.values()):
+            raise AssertionError(f"{what}: the replicas of a data group "
+                                 "differ after the update")
+        print(f"{what}: {world} ranks on cuda:0 over gloo, "
+              f"{time.perf_counter() - t0:.1f} s from spawn to join; loss, "
+              f"grad norm within {TRAIN_LOSS_RTOL} of one process on the "
+              f"global batch; worst gradient gap / leaf max: transformer "
+              f"{worst['transformer']:.3e} (bound {TRAIN_BERT_REL}), CNN "
+              f"{worst['cnn']:.3e} (bound {TRAIN_CNN_REL}); each data "
+              f"group's replicas bit-identical; 0 kernel launches")
+    return 3
+
+
+def _train18_rank(rank, world, argv, rendezvous):
+    """18b in a spawned rank on cuda:0: leave the spawner's group and run
+    ``run_video_retrieval.main`` with the launch flags, which joins its
+    own group over gloo (CLIPBERT_DIST_BACKEND: NCCL refuses two ranks on
+    one device). Records each step (CUDA events, its all-reduce's wall
+    with the card synchronized around it, its launches), the validation
+    (launches, matrix) and the shapes the kernels ran at."""
+    from clipbert_tpu_torch.tasks import run_video_retrieval as rvr
+    from clipbert_tpu_torch.train import trainer
+    from clipbert_tpu_torch.utils.distributed import tensors_digest
+    _rank_setup()
+    torch.distributed.destroy_process_group()
+    os.environ["CLIPBERT_DIST_BACKEND"] = "gloo"
+    step_rec, reduce_ms, val_rec, shapes = [], [], [], set()
+    real = (steps.make_train_step, steps._all_reduce_mean, trainer.train)
+    kernel_mods = (("fused_attention", fa), ("matmul_bn_act", mba),
+                   ("fused_stem_pool", fsp))
+
+    def timed_reduce(grads, mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real[1](grads, mesh)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def recording_step(*a, **k):
+        step = real[0](*a, **k)
+
+        def run(state, batch, seed):
+            before = _counts()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            state, m = step(state, batch, seed)
+            e1.record()
+            step_rec.append((float(m["loss"]), (e0, e1),
+                             sum(_counts()) - sum(before)))
+            return state, m
+        return run
+
+    def recording_train(run_cfg, model_cfg, spec, **k):
+        fn = spec.validate_fn
+
+        def validate(model, eval_fn):
+            before = _counts()
+            out = fn(model, eval_fn)
+            val_rec.append((out, [x - y for x, y in zip(_counts(), before)]))
+            return out
+        spec.validate_fn = validate
+        return real[2](run_cfg, model_cfg, spec, **k)
+
+    steps.make_train_step, steps._all_reduce_mean = (recording_step,
+                                                     timed_reduce)
+    trainer.train = recording_train
+    for kind, m in kernel_mods:
+        m._launch = _shape_recorder(kind, m._launch, shapes)
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0, read right after ----
+    _reset_counts()
+    res = rvr.main(argv + ["--coordinator_address", f"file://{rendezvous}",
+                           "--num_processes", str(world),
+                           "--process_id", str(rank)])
+    torch.cuda.synchronize()
+    counts = _counts()
+    return {"steps": [(loss, a.elapsed_time(b), k)
+                      for loss, (a, b), k in step_rec],
+            "reduce_ms": reduce_ms, "val": val_rec, "counts": counts,
+            "global_step": res["global_step"],
+            "digest": tensors_digest(trainer.replica_tensors(res["state"])),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "backend": torch.distributed.get_backend(), "shapes": shapes}
+
+
+def phase_train18(tok, d, path, rows, gen):
+    """18b. Returns the validations' launches summed over the ranks
+    (attention, matmul_bn_act, fused_stem_pool) and each kernel's worst
+    error at their shapes."""
+    import gc
+    from clipbert_tpu_torch.ckpt.from_jax import load_jax_params
+    from clipbert_tpu_torch.tasks import run_video_retrieval as rvr
+    t18 = time.perf_counter()
+    base = _train_cfg(d, path, rows)          # writes train_run.json
+    per_rank = base.train_batch_size // TRAIN18_RANKS
+    out_dir = os.path.join(d, "train18_out")
+    argv = ["--config", os.path.join(d, "train_run.json"),
+            "--output_dir", out_dir, "--train_batch_size", str(per_rank),
+            "--num_train_epochs", str(TRAIN18_STEPS),
+            "--min_valid_steps", str(TRAIN18_STEPS),
+            "--save_steps_ratio", "1.0", "--device", "cuda:0"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = spawn_ranks(_train18_rank, TRAIN18_RANKS,
+                       (argv, os.path.join(d, "train18_rendezvous")),
+                       backend="gloo", workdir=os.path.join(d, "train18"),
+                       timeout_s=RANK_TIMEOUT_S, threads=4)
+    spawn_s = time.perf_counter() - t0
+    cfg = load_run_config(argv)
+    cfg.num_labels = 2                  # as run_video_retrieval sets it
+    model_cfg = inject_task_attrs(ModelConfig.from_json(cfg.model_config),
+                                  cfg)
+    n_cap = -(-EVAL_CAPTIONS // cfg.inference_batch_size)
+    total, shapes = [0] * 3, set()
+    for r, out in enumerate(outs):
+        if out["backend"] != "gloo" or out["global_step"] != TRAIN18_STEPS \
+                or len(out["steps"]) != TRAIN18_STEPS:
+            raise AssertionError(f"18b rank {r}: {out['backend']}, "
+                                 f"{out['global_step']} updates")
+        for i, (_, _, k) in enumerate(out["steps"]):
+            _expect(f"18b rank {r} train step {i + 1}, kernels", k, 0)
+        if len(out["val"]) != 1:
+            raise AssertionError(f"18b rank {r}: {len(out['val'])} "
+                                 "validations")
+        _, vl = out["val"][0]
+        if list(out["counts"]) != vl:
+            raise AssertionError(f"18b rank {r}: launches {out['counts']} "
+                                 f"outside the validation's {vl}")
+        g = -(-EVAL_VIDEOS // TRAIN18_RANKS // cfg.inference_video_batch_size)
+        _expect(f"18b rank {r} validation, attention", vl[0],
+                model_cfg.num_hidden_layers * g * n_cap)
+        _expect(f"18b rank {r} validation, attention on tc", vl[3], vl[0])
+        _expect(f"18b rank {r} validation, matmul_bn_act", vl[1],
+                MBA_PER_ENCODE * g)
+        _expect(f"18b rank {r} validation, matmul_bn_act on wg", vl[4],
+                vl[1])
+        _expect(f"18b rank {r} validation, fused_stem_pool", vl[2], g)
+        _expect(f"18b rank {r} validation, fused_stem_pool on tc", vl[5],
+                vl[2])
+        total = [a + b for a, b in zip(total, vl)]
+        shapes |= out["shapes"]
+    if outs[0]["digest"] != outs[1]["digest"]:
+        raise AssertionError("18b: the ranks' final weights and moments "
+                             "differ")
+    merged = [out["val"][0][0]["score_matrix"] for out in outs]
+    if not np.array_equal(merged[0], merged[1]):
+        raise AssertionError("18b: the ranks' merged matrices differ")
+    _check_matrix(merged[0])
+    losses = [[s[0] for s in out["steps"]] for out in outs]
+    if losses[0] != losses[1]:
+        raise AssertionError(f"18b: the ranks' losses differ: {losses}")
+    # one process validates rank 0's weights (its deploy checkpoint): the
+    # same function, the same group and minibatch shapes
+    saved = checkpoint.ModelSaver(out_dir).available_steps()
+    if saved != [TRAIN18_STEPS]:
+        raise AssertionError(f"18b: deploy checkpoints {saved}")
+    model = load_jax_params(clipbert.empty_clipbert(
+        model_cfg, "retrieval", device="cuda"), checkpoint.load_flat(
+            checkpoint.ModelSaver(out_dir).path(TRAIN18_STEPS)))
+    model.eval().requires_grad_(False)
+    single = inference_retrieval(cfg, model_cfg, model,
+                                 rvr.build_val_dataset(cfg, tok),
+                                 torch.bfloat16)["score_matrix"]
+    del model
+    gap = float(np.abs(single - merged[0]).max())
+    if not np.array_equal(single, merged[0]):
+        raise AssertionError(f"18b: the merged validation differs from one "
+                             f"process's on rank 0's weights by {gap}")
+    err = {k: 0.0 for k in ("fused_attention", "matmul_bn_act",
+                            "fused_stem_pool")}
+    _check_shapes17(shapes, gen, err)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    for r, out in enumerate(outs):
+        ms = [s[1] for s in out["steps"]]
+        print(f"18b rank {r} ({TRAIN18_RANKS} ranks x {per_rank} videos x "
+              f"{cfg.train_n_clips} clips x {cfg.num_frm} frames at "
+              f"{cfg.max_img_size}^2, bf16, over gloo on cuda:0): ms per "
+              f"update (CUDA events) " + ", ".join(f"{x:.1f}" for x in ms)
+              + "; gradient all-reduce ms per update (card synchronized "
+              "around it) " + ", ".join(f"{x:.1f}" for x in
+                                        out["reduce_ms"])
+              + f"; peak memory {out['peak_gib']:.2f} GiB "
+              f"(max_memory_allocated); validation launches "
+              f"{out['val'][0][1]}; card {card}")
+    print(f"18b: {spawn_s:.1f} s from spawn to join; losses "
+          + ", ".join(f"{x:.4f}" for x in losses[0]) + " on both ranks; "
+          f"final weights and moments bit-identical on both ranks; the "
+          f"merged validation matrix bit-identical to one process's on rank "
+          f"0's weights (R@1 t2v {outs[0]['val'][0][0]['t2v_r1']}); the "
+          f"kernels at the validation's {len(shapes)} shapes within their "
+          f"bounds ({json.dumps(err)}); phase 18b "
+          f"{time.perf_counter() - t18:.1f} s")
+    return total, err
+
+
+# ---------------------------------------------------------------------------
+# phase 19: int8 scoring and the checkpoint harness
+# ---------------------------------------------------------------------------
+
+QUANT_ATOL = 0.08        # tests/test_int8.py: int8 against fp probabilities
+
+
+def _int_mm_recorder(calls):
+    """ops/linear.py::int_mm that keeps, per distinct (M, K, N), its first
+    operands and result (on the CPU)."""
+    from clipbert_tpu_torch.ops import linear as lin
+    real = lin.int_mm
+
+    def run(a, w):
+        out = real(a, w)
+        key = (a.shape[0], a.shape[1], w.shape[0])
+        if key not in calls:
+            calls[key] = (a.cpu(), w.cpu(), out.cpu())
+        return out
+    return real, run
+
+
+def _quant_bytes(model, qmodel):
+    """(the floating model's bytes in the denses quantize_scoring_params
+    converts, as resident fp32 and as bf16; the quantized model's bytes in
+    them: int8 weights, fp32 scales and biases)."""
+    from clipbert_tpu_torch.ops import linear as lin
+    q = {n for n, m in qmodel.named_modules()
+         if isinstance(m, lin.QuantLinear)}
+    mods = dict(model.named_modules())
+    numel = sum(mods[n].weight.numel() for n in q)
+    bias = sum(mods[n].bias.numel() for n in q)
+    qb = sum(b.numel() * b.element_size() for n in q
+             for b in dict(qmodel.named_modules())[n].buffers())
+    return 4 * (numel + bias), 2 * numel + 4 * bias, qb
+
+
+def _scorer_turns(what, scorers, request, sizes, n_rep):
+    """Requests on the bf16 and the int8 scorer in turns (bf16 first on
+    even repeats); returns {size: {form: [seconds]}} and the largest
+    |int8 - bf16| probability gap."""
+    lat = {n: {f: [] for f in scorers} for n in sizes}
+    gap = 0.0
+    for rep in range(n_rep):
+        forms = list(scorers) if rep % 2 == 0 else list(scorers)[::-1]
+        for n in sizes:
+            probs = {}
+            for f in forms:
+                t0 = time.perf_counter()
+                probs[f] = request(scorers[f], n)
+                lat[n][f].append(time.perf_counter() - t0)
+            g = float(np.abs(probs["int8"] - probs["bf16"]).max())
+            if not np.isfinite(probs["int8"]).all() or g > QUANT_ATOL:
+                raise AssertionError(f"19 {what}, {n}: int8 vs bf16 "
+                                     f"probabilities {g} > {QUANT_ATOL}")
+            gap = max(gap, g)
+    return lat, gap
+
+
+def _check_int8_products(what, calls):
+    """The card's int8 products against the CPU's on the same operands, bit
+    for bit; returns the shapes and which of them padded."""
+    from clipbert_tpu_torch.ops import linear as lin
+    padded = []
+    for (M, K, N), (a, w, out) in sorted(calls.items()):
+        if not torch.equal(out, lin.int_mm(a, w)):
+            raise AssertionError(f"19 {what}: int8 product ({M} x {K} @ {K} "
+                                 f"x {N}) differs from the CPU's")
+        if M < lin._INT_MM_MIN_ROWS or K % 8 or N % 8:
+            padded.append((M, K, N))
+    return padded
+
+
+def phase_int8(model, cfg, tok):
+    """19a and 19b. Returns the main path's launches (attention,
+    matmul_bn_act, fused_stem_pool)."""
+    import copy
+    from clipbert_tpu_torch.ops import linear as lin
+    t19 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    caps = _captions(rng, max(REQUEST_SIZES))
+    common = dict(device="cuda", compute_dtype=torch.bfloat16, num_frm=2,
+                  max_img_size=448, max_txt_len=20, max_captions=32)
+    qmodel = copy.deepcopy(model)
+    total = [0] * 3
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    cases = []
+    for nc in (1, 16):
+        sc = {"bf16": RetrievalScorer(model, cfg, tok, n_clips=nc, **common),
+              "int8": RetrievalScorer(qmodel, cfg, tok, n_clips=nc,
+                                      quantize=True, **common)}
+        frames = rng.integers(0, 256, (nc * 2, 240, 320, 3), np.uint8)
+        cases.append((f"retrieval, {nc} clip(s) x 2 frames at 448 px",
+                      sc, lambda s, n, fr=frames: s.score(
+                          None, caps[:n], features=s.encode_frames(fr))))
+    fp32_b, bf16_b, int8_b = _quant_bytes(model, qmodel)
+    vcfg = cfg.replace(num_labels=QA_VQA_LABELS, loss_type="bce")
+    vqa = {}
+    for form in ("bf16", "int8"):
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        vm = clipbert.init_clipbert(vcfg, "seq_cls", generator=gen,
+                                    device="cuda")
+        vqa[form] = VQAScorer(vm, vcfg, tok, {i: f"ans{i}" for i in
+                                              range(QA_VQA_LABELS)},
+                              device="cuda", compute_dtype=torch.bfloat16,
+                              max_img_size=768, max_txt_len=20,
+                              max_questions=32, quantize=form == "int8")
+    img = _jpeg(rng, 480, 640)
+    cases.append(("VQA, one 480x640 image at 768 px, 3129 answers", vqa,
+                  lambda s, n: s.probs(None, caps[:n],
+                                       features=s.encode_image(img))))
+    for what, sc, request in cases:
+        for s in sc.values():
+            if isinstance(s, VQAScorer):
+                s.warmup(((480, 640),))
+            else:
+                s.warmup(((240, 320),))
+        torch.cuda.synchronize()
+        calls = {}
+        real, rec = _int_mm_recorder(calls)
+        lin.int_mm = rec
+        # ---- the main path: counts from 0, read right after ----
+        _reset_counts()
+        try:
+            for n in REQUEST_SIZES:
+                before = _counts()
+                request(sc["int8"], n)
+                dl = [a - b for a, b in zip(_counts(), before)]
+                _expect(f"19 {what}, int8, attention", dl[0],
+                        cfg.num_hidden_layers)
+                _expect(f"19 {what}, int8, matmul_bn_act on wg", dl[4],
+                        MBA_PER_ENCODE)
+                _expect(f"19 {what}, int8, fused_stem_pool on tc", dl[5], 1)
+                _expect(f"19 {what}, int8, attention on its body", dl[3],
+                        dl[0] if _attn_body(_seq_len(
+                            20, 768 if "VQA" in what else 448)) == "tc"
+                        else 0)
+        finally:
+            lin.int_mm = real
+        counts = _counts()
+        total = [a + b for a, b in zip(total, counts[:3])]
+        padded = _check_int8_products(what, calls)
+        lat, gap = _scorer_turns(what, sc, request, REQUEST_SIZES, REPEATS)
+        per = "; ".join(
+            f"{n} caption(s) bf16 {np.median(lat[n]['bf16']) * 1e3:.2f} ms,"
+            f" int8 {np.median(lat[n]['int8']) * 1e3:.2f} ms"
+            for n in REQUEST_SIZES)
+        print(f"19 {what}: p50 request (encode + score, {REPEATS} in turns)"
+              f" {per}; int8 vs bf16 probabilities max_abs_diff {gap:.3e} "
+              f"(bound {QUANT_ATOL}); {len(calls)} int8 product shapes, "
+              f"each bit-identical to the CPU's, padded (M, K, N) {padded}; "
+              f"int8 launches {counts[:3]}; card {card}")
+    print(f"19 transformer denses (encoder, pooler, head) of the retrieval "
+          f"model: {fp32_b / 2**20:.1f} MiB resident fp32 in the bf16 "
+          f"scorer ({bf16_b / 2**20:.1f} MiB as bf16), {int8_b / 2**20:.1f} "
+          f"MiB int8 weights + fp32 scales and biases; phase 19a-b "
+          f"{time.perf_counter() - t19:.1f} s")
+    del cases, vqa, qmodel
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_verify_ckpt(cfg, run_cfg, tok, d, path, rows, matrix):
+    """19c: clipbert_tpu_torch.verify_ckpt on a deploy .npz of phase 7's
+    model (the seeded init, unfolded) over phase 7's store and captions.
+    Returns its launches."""
+    from clipbert_tpu_torch import verify_ckpt
+    from clipbert_tpu_torch.ckpt.from_jax import model_state, to_jax_flat
+    gen = torch.Generator(device="cuda").manual_seed(0)    # _model's
+    m = clipbert.init_clipbert(cfg, "retrieval", generator=gen,
+                               device="cuda")
+    npz = os.path.join(d, "verify_model.npz")
+    np.savez(npz, **to_jax_flat(model_state(m)))
+    del m
+    txt = os.path.join(d, "verify.jsonl")
+    with open(txt, "w") as f:
+        for r in rows:
+            f.write(json.dumps({"vid_id": r["vid_id"], "txt": r["txt"]})
+                    + "\n")
+    with open(os.path.join(ROOT, "configs",
+                           "msrvtt_ret_base_resnet50.json")) as f:
+        conf = json.load(f)
+    conf.update(model_config=os.path.join(ROOT, conf["model_config"]),
+                inference_video_batch_size=run_cfg.inference_video_batch_size)
+    conf_path = os.path.join(d, "verify_run.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    # ---- the main path: counts from 0, read right after ----
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = verify_ckpt.run_verification(npz, txt, path, d, config=conf_path)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    g = -(-EVAL_VIDEOS // run_cfg.inference_video_batch_size)
+    n_cap = -(-EVAL_CAPTIONS // run_cfg.inference_batch_size)
+    _expect("19c verify_ckpt, attention on tc", launches[3],
+            cfg.num_hidden_layers * g * n_cap)
+    _expect("19c verify_ckpt, matmul_bn_act on wg", launches[4],
+            MBA_PER_ENCODE * g)
+    _expect("19c verify_ckpt, fused_stem_pool on tc", launches[5], g)
+    ds = _eval_dataset(rows, tok, path, run_cfg)
+    vid_pos = {v: i for i, v in enumerate(ds.video_ids)}
+    gt = [vid_pos[ds.gt_cap_id2vid_id[i]] for i in range(EVAL_CAPTIONS)]
+    mm = eval_metrics.retrieval_metrics(matrix.T, gt)
+    want = {f"t2v_{k}": v for k, v in mm["text2video"].items()}
+    want.update({f"v2t_{k}": v for k, v in mm["video2text"].items()})
+    have = {k: got[k] for k in want}
+    if have != want:
+        raise AssertionError(f"19c verify_ckpt R@K {have} != phase 7's "
+                             f"{want}")
+    gap = float(np.abs(got["score_matrix"] - matrix).max())
+    print(f"19c verify_ckpt on a deploy .npz of phase 7's model over phase "
+          f"7's store (strict load, BN folded): wall {wall:.2f} s; R@K equal "
+          f"to phase 7's {json.dumps(have)}; score matrix max_abs_diff "
+          f"{gap:.3e} from phase 7's; launches {launches[:3]}; report:\n"
+          + verify_ckpt.format_report(got))
+    return launches[:3]
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -3560,6 +4169,17 @@ def main() -> None:
         train_launches = phase_train(tok, d, path, rows)
         phase_pretrain_autograd(tok)
         train17_launches, train17_err = phase_train17(d, path)
+        torch.cuda.empty_cache()
+        t18 = time.perf_counter()
+        phase_dp_step(tok, d)
+        train18_launches, train18_err = phase_train18(tok, d, path, rows,
+                                                      gen)
+        print(f"phase 18: {time.perf_counter() - t18:.1f} s")
+        t19 = time.perf_counter()
+        int8_launches = phase_int8(model, model_cfg, tok)
+        verify_launches = phase_verify_ckpt(model_cfg, run_cfg, tok, d,
+                                            path, rows, matrix)
+        print(f"phase 19: {time.perf_counter() - t19:.1f} s")
 
     def record(name, source, replaces, n, err, t, design, qa=None):
         out = {"name": name, "route": "cuda",
@@ -3569,14 +4189,24 @@ def main() -> None:
         if qa is not None:
             # phase 15: launches on the QA family's main paths, the worst
             # bf16 error and the times at its shapes; phases 16 and 17:
-            # launches in the training runs (all in their validations)
+            # launches in the training runs (all in their validations);
+            # phase 18: the 2-process training's validations (both ranks),
+            # phase 19: the int8 scorers' requests and verify_ckpt
             i = ("fused_attention", "matmul_bn_act",
                  "fused_stem_pool").index(name)
             out.update(qa_launches=qa_launches[i], qa_max_abs_err=qa_err[name],
                        qa_shapes=qa_times[name],
                        train_launches=train_launches[i],
                        train17_launches=train17_launches[i],
-                       train17_max_abs_err=train17_err[name])
+                       train17_max_abs_err=train17_err[name],
+                       train18_launches=train18_launches[i],
+                       train18_max_abs_err=train18_err[name],
+                       int8_launches=int8_launches[i],
+                       verify_ckpt_launches=verify_launches[i])
+        else:
+            # phases 18-19 run no tensor-parallel scoring
+            out.update(train18_launches=0, int8_launches=0,
+                       verify_ckpt_launches=0)
         return out
 
     tc = ("body tc: QK^T and PV on mma.sync m16n8k16 (bf16 in, fp32 "

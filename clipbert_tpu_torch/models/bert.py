@@ -27,7 +27,8 @@ from clipbert_tpu_torch.ops.activations import ACT2FN
 from clipbert_tpu_torch.ops.attention import SelfAttention, multi_head_attention
 from clipbert_tpu_torch.ops.dropout import dropout
 from clipbert_tpu_torch.ops.layernorm import layer_norm
-from clipbert_tpu_torch.ops.linear import dense_row_parallel, linear, mm_f32
+from clipbert_tpu_torch.ops.linear import (copy_to_model_group,
+                                          dense_row_parallel, linear, mm_f32)
 
 
 class TextEmbeddings(nn.Module):
@@ -141,7 +142,11 @@ def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
     ``attention.output.dense`` and ``output.dense`` are row-parallel, one
     all-reduce each over the model group (ops/linear.py::
     dense_row_parallel). LayerNorms and residuals are computed whole on
-    every rank. ``fused_attn`` as in ops/attention.py::multi_head_attention.
+    every rank. Under autograd the inputs of the column-parallel products
+    (q/k/v, the FFN up projection) pass through Megatron's f and the
+    row-parallel all-reduces are Megatron's g (ops/linear.py), so every
+    parameter's gradient is the whole model's. ``fused_attn`` as in
+    ops/attention.py::multi_head_attention.
 
     Training: ``dropout_seed`` (the JAX ``dropout_key``) seeds three
     dropouts a layer (attention probabilities, attention output, FFN
@@ -174,7 +179,9 @@ def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
         ao = lp.attention.output
         a = dropout(out_dense(ctx, ao.dense), cfg.hidden_dropout_prob, g_res)
         hidden = layer_norm(a + hidden, ao.ln.weight, ao.ln.bias, eps)
-        inter = act(linear(hidden, lp.intermediate.dense))
+        h_in = copy_to_model_group(hidden, mesh.model_group) if tp \
+            else hidden
+        inter = act(linear(h_in, lp.intermediate.dense))
         out = dropout(out_dense(inter, lp.output.dense),
                       cfg.hidden_dropout_prob, g_ffn)
         return layer_norm(out + hidden, lp.output.ln.weight,

@@ -26,7 +26,7 @@ from clipbert_tpu_torch.core.mesh import Mesh
 from clipbert_tpu_torch.core.rng import RngGen
 from clipbert_tpu_torch.models import bert, resnet, visual_embed
 from clipbert_tpu_torch.ops.dropout import dropout
-from clipbert_tpu_torch.ops.linear import linear
+from clipbert_tpu_torch.ops.linear import linear, quantize_dense
 
 HEAD_TYPES = ("pretrain", "seq_cls", "multi_choice", "regression", "retrieval")
 
@@ -223,6 +223,31 @@ def fold_cnn_bn_scales(model: ClipBert) -> ClipBert:
     """Inference prep: frozen-BN scales folded into the R50 conv weights, in
     place (resnet.fold_bn_scales)."""
     resnet.fold_bn_scales(model.cnn.resnet)
+    return model
+
+
+@torch.no_grad()
+def quantize_scoring_params(model: ClipBert) -> ClipBert:
+    """Opt-in int8 prep for inference scoring, in place
+    (clipbert_tpu/models/clipbert.py::quantize_scoring_params): every
+    encoder layer's query / key / value, attention-output, intermediate
+    and output denses, the pooler, and each classifier dense become
+    ops/linear.py::QuantLinear, which ops.linear.linear and the merged QKV
+    of ops.attention dispatch on. Embeddings, LayerNorms, the CNN, the
+    regressor and the tied MLM decoder stay floating point. Training and
+    the parity oracles never call this."""
+    bert_p = model.transformer.bert
+    for lp in bert_p.encoder.layers:
+        sa = lp.attention.self
+        for n in ("query", "key", "value"):
+            setattr(sa, n, quantize_dense(getattr(sa, n)))
+        for owner in (lp.attention.output, lp.intermediate, lp.output):
+            owner.dense = quantize_dense(owner.dense)
+    bert_p.pooler.dense = quantize_dense(bert_p.pooler.dense)
+    head = getattr(model.transformer, "classifier", None)
+    if head is not None:
+        head.fc1 = quantize_dense(head.fc1)
+        head.fc2 = quantize_dense(head.fc2)
     return model
 
 

@@ -23,7 +23,8 @@ from clipbert_tpu_torch.core.mesh import Mesh
 from clipbert_tpu_torch.ops.dropout import dropout
 from clipbert_tpu_torch.ops.fused_attention import (
     fused_attention, fused_attention_shard_heads)
-from clipbert_tpu_torch.ops.linear import dense
+from clipbert_tpu_torch.ops.linear import (QuantLinear, _qlinear,
+                                          copy_to_model_group, dense)
 
 
 class SelfAttention(nn.Module):
@@ -49,8 +50,13 @@ def multi_head_attention(hidden: torch.Tensor, p: SelfAttention,
 
     One merged (D -> 3 D / n_model) projection of this rank's q/k/v shards
     with the ops.linear recipe; q, k and v are strided views of it, each
-    with ``num_heads / n_model`` heads. ``fused`` picks the core as the JAX
-    package's strict gate does (clipbert_tpu/ops/attention.py:77-82):
+    with ``num_heads / n_model`` heads. Int8 projections
+    (ops/linear.py::QuantLinear) merge the same way: the per-channel scales
+    concatenate beside their weight rows, so the merged product equals the
+    three separate ones. Under a tensor-parallel ``mesh`` the projection's
+    input passes through Megatron's f (ops/linear.py::copy_to_model_group),
+    so its gradient sums every rank's heads. ``fused`` picks the core as
+    the JAX package's strict gate does (clipbert_tpu/ops/attention.py:77-82):
     ``True`` runs the fused kernel (ops/fused_attention.py), through
     fused_attention_shard_heads on the local heads under a tensor-parallel
     ``mesh``, and anything else takes the einsum path, as does a mask that
@@ -64,12 +70,21 @@ def multi_head_attention(hidden: torch.Tensor, p: SelfAttention,
     head_dim = D // num_heads
     heads = num_heads // n_model
     Dl = heads * head_dim
-    if p.query.weight.shape[0] != Dl:
-        raise ValueError(f"query projection has {p.query.weight.shape[0]} "
-                         f"outputs; {heads} local heads need {Dl}")
-    w = torch.cat([p.query.weight, p.key.weight, p.value.weight])
-    b = torch.cat([p.query.bias, p.key.bias, p.value.bias])
-    qkv = dense(hidden, w, b)                              # (B, L, 3 Dl)
+    projs = (p.query, p.key, p.value)
+    quant = isinstance(p.query, QuantLinear)
+    rows = (p.query.weight_i8 if quant else p.query.weight).shape[0]
+    if rows != Dl:
+        raise ValueError(f"query projection has {rows} outputs; {heads} "
+                         f"local heads need {Dl}")
+    if n_model > 1:
+        hidden = copy_to_model_group(hidden, mesh.model_group)
+    b = torch.cat([t.bias for t in projs])
+    if quant:
+        qkv = _qlinear(hidden, torch.cat([t.weight_i8 for t in projs]),
+                       torch.cat([t.kscale for t in projs]), b)
+    else:
+        qkv = dense(hidden, torch.cat([t.weight for t in projs]), b)
+    # qkv: (B, L, 3 Dl)
     q, k, v = (t.view(B, L, heads, head_dim)
                for t in qkv.split(Dl, dim=-1))
 

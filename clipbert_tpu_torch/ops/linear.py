@@ -1,4 +1,5 @@
-"""Dense layer primitive (port of clipbert_tpu/ops/linear.py, fp path).
+"""Dense layer primitive (port of clipbert_tpu/ops/linear.py), the int8
+scoring path, and the autograd form of the Megatron split's collectives.
 
 The JAX recipe: operands in the activation dtype (bf16 on the serving path),
 fp32 accumulation, fp32 bias add, ONE cast back to the activation dtype.
@@ -7,6 +8,19 @@ bf16 before the bias add; ``out_dtype=torch.float32`` keeps the fp32
 accumulator instead. CPU builds have no such overload, so there the bf16
 operands are widened to fp32 first, which gives the same numbers: a product
 of two bf16 values is exact in fp32.
+
+int8 path (opt-in, inference scoring only): :func:`quantize_dense` turns
+an ``nn.Linear`` into a :class:`QuantLinear` (symmetric per-output-channel
+int8 weights), and :func:`linear` dispatches on it: activations are
+quantized per token (abs-max over the features), the product runs int8 x
+int8 -> int32 through ``torch._int_mm`` (:func:`int_mm`), and the result
+is dequantized by row scale x column scale in fp32, the JAX expression's
+order.
+
+Tensor parallelism (parallel/sharding.py): :func:`copy_to_model_group`
+and :func:`reduce_from_model_group` are Megatron's *f* and *g*, explicit
+``torch.autograd.Function``s, so the tensor-parallel train step's
+gradients are the whole model's.
 """
 
 from __future__ import annotations
@@ -75,8 +89,148 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype).reshape(x.shape[:-1] + (weight.shape[0],))
 
 
-def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+def linear(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """``layer``'s product on ``x``: :func:`dense` for an ``nn.Linear``,
+    :func:`_qlinear` for a :class:`QuantLinear`."""
+    if isinstance(layer, QuantLinear):
+        return _qlinear(x, layer.weight_i8, layer.kscale, layer.bias)
     return dense(x, layer.weight, layer.bias)
+
+
+# ---------------------------------------------------------------------------
+# int8 scoring (clipbert_tpu/ops/linear.py:28-73)
+# ---------------------------------------------------------------------------
+
+_QMAX = 127.0
+# torch._int_mm's shape rules on CUDA (aten/src/ATen/native/cuda/Blas.cpp,
+# _int_mm_out_cuda): more than 16 rows, K and N positive multiples of 8
+_INT_MM_MIN_ROWS = 17
+_INT_MM_ALIGN = 8
+# int_mm calls that had to pad (the pooler and head rows of a small
+# request, the retrieval head's N = 2, VQA's N = 3129)
+PADDED = 0
+
+
+class QuantLinear(nn.Module):
+    """An ``nn.Linear`` quantized for scoring: ``weight_i8`` (out, in)
+    int8, ``kscale`` (out,) fp32 per-output-channel scales, and the
+    floating ``bias``; all buffers (nothing trains)."""
+
+    def __init__(self, weight_i8: torch.Tensor, kscale: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("weight_i8", weight_i8)
+        self.register_buffer("kscale", kscale)
+        self.register_buffer("bias", bias)
+
+
+@torch.no_grad()
+def quantize_dense(layer: nn.Module) -> nn.Module:
+    """nn.Linear -> :class:`QuantLinear`: symmetric per-output-channel
+    scales over the contraction (``in``, dim 1 of the (out, in) weight),
+    ``max|w| / 127`` floored at 1e-12, then round half to even and clip
+    to +-127. The JAX quantize_dense on the (in, out) kernel, transposed.
+    Idempotent: a QuantLinear passes through."""
+    if isinstance(layer, QuantLinear):
+        return layer
+    w = layer.weight.detach().float()
+    s = torch.clamp(w.abs().amax(dim=1, keepdim=True) / _QMAX, min=1e-12)
+    wi = torch.clamp(torch.round(w / s), -_QMAX, _QMAX).to(torch.int8)
+    bias = None if layer.bias is None else layer.bias.detach().clone()
+    return QuantLinear(wi, s[:, 0].contiguous(), bias)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (N, K) int8 weights, transposed -> (M, N) int32, one
+    ``torch._int_mm``. A shape outside its CUDA rules is zero-padded up to
+    them (rows to 17, K and N to multiples of 8) and the result sliced
+    back: integer sums are exact, so no kept element changes. The same
+    padding runs on every device."""
+    global PADDED
+    M, K = a.shape
+    N = w.shape[0]
+    Mp = max(M, _INT_MM_MIN_ROWS)
+    Kp, Np = _round_up(K, _INT_MM_ALIGN), _round_up(N, _INT_MM_ALIGN)
+    if (Mp, Kp, Np) != (M, K, N):
+        PADDED += 1
+        a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M))
+        w = torch.nn.functional.pad(w, (0, Kp - K, 0, Np - N))
+    return torch._int_mm(a.contiguous(), w.t())[:M, :N]
+
+
+def _qlinear(x: torch.Tensor, weight_i8: torch.Tensor, kscale: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-token abs-max activation scales, int8 x int8 -> int32, then
+    ``acc * rs * kscale`` in fp32 in that order, the fp32 bias, one cast to
+    x's dtype (clipbert_tpu/ops/linear.py::_qlinear)."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    rs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / _QMAX, min=1e-12)
+    xi = torch.clamp(torch.round(xf / rs), -_QMAX, _QMAX).to(torch.int8)
+    y = int_mm(xi, weight_i8).float() * rs * kscale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(x.shape[:-1] + (weight_i8.shape[0],))
+
+
+# ---------------------------------------------------------------------------
+# the Megatron split's collectives, with their gradients
+# ---------------------------------------------------------------------------
+
+class _CopyToModelGroup(torch.autograd.Function):
+    """Megatron's f: the identity forward; backward, the input gradient
+    all-reduced (SUM) over the model group, since each rank's
+    column-parallel product gives only its shard's share of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModelGroup(torch.autograd.Function):
+    """Megatron's g: the partial products all-reduced (SUM) over the model
+    group forward; the identity backward, since every model rank computes
+    the same loss from the replicated result. (An all-reduce of the
+    gradient here would scale it by the model axis.)"""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        ctx.mark_dirty(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model_group(x: torch.Tensor,
+                        group: dist.ProcessGroup) -> torch.Tensor:
+    """The input of a column-parallel product (q/k/v, the FFN up
+    projection): unchanged forward, gradient summed over ``group``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CopyToModelGroup.apply(x, group)
+    return x
+
+
+def reduce_from_model_group(y: torch.Tensor,
+                            group: dist.ProcessGroup) -> torch.Tensor:
+    """The sum of every model rank's ``y``; its gradient passes through
+    unchanged."""
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _ReduceFromModelGroup.apply(y, group)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y
 
 
 def dense_row_parallel(x: torch.Tensor, w_shard: torch.Tensor,
@@ -89,9 +243,10 @@ def dense_row_parallel(x: torch.Tensor, w_shard: torch.Tensor,
     model ``group``, then the whole fp32 bias is added once and the result
     cast once to x's dtype: what GSPMD computes for the JAX package's
     row-split ``dot(preferred_element_type=f32)``. Nothing is rounded to
-    the activation dtype before the reduce."""
+    the activation dtype before the reduce. Under autograd the reduce is
+    :func:`reduce_from_model_group`: its gradient passes through."""
     y = mm_f32(x.reshape(-1, x.shape[-1]), w_shard.to(x.dtype).t())
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    y = reduce_from_model_group(y, group)
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype).reshape(x.shape[:-1] + (w_shard.shape[0],))

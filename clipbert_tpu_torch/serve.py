@@ -114,12 +114,17 @@ def _pad_texts(tokenizer: BertTokenizer, texts: Sequence[str],
             torch.from_numpy(mask).to(device))
 
 
-def _prepare_model(model: clipbert.ClipBert, fold_bn: bool,
-                   device) -> clipbert.ClipBert:
+def _prepare_model(model: clipbert.ClipBert, fold_bn: bool, device,
+                   quantize: bool = False) -> clipbert.ClipBert:
     """Scorer preamble, in place: fold the frozen-BN scales into the conv
-    weights, move the model to ``device``, inference mode."""
+    weights, optionally int8-quantize the transformer's denses
+    (clipbert.quantize_scoring_params: a memory option; its speed on the
+    card is in PERF.md, and on the TPU it was 31% slower end to end, the
+    JAX serve.py notes), move the model to ``device``, inference mode."""
     if fold_bn:
         clipbert.fold_cnn_bn_scales(model)
+    if quantize:
+        clipbert.quantize_scoring_params(model)
     return model.to(device).eval().requires_grad_(False)
 
 
@@ -190,7 +195,8 @@ class RetrievalScorer(_ResidentVideoScorer):
     The scorer takes ownership of ``model``: BN folding and the move to
     ``device`` happen in place. ``use_kernels`` picks the CNN's form
     (models/resnet.py::resnet50_forward); None runs the kernel form on a
-    CUDA device.
+    CUDA device. ``quantize`` int8-quantizes the transformer's denses
+    (:func:`_prepare_model`).
     """
 
     def __init__(self, model: clipbert.ClipBert, model_cfg: ModelConfig,
@@ -201,9 +207,10 @@ class RetrievalScorer(_ResidentVideoScorer):
                  mean=transforms.IMAGENET_MEAN_255,
                  std=transforms.IMAGENET_STD_1,
                  compute_dtype=torch.bfloat16, fold_bn: bool = True,
-                 use_kernels: Optional[bool] = None):
+                 use_kernels: Optional[bool] = None,
+                 quantize: bool = False):
         self.device = _check_device(device)
-        self.model = _prepare_model(model, fold_bn, self.device)
+        self.model = _prepare_model(model, fold_bn, self.device, quantize)
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
         self.num_frm = num_frm
@@ -291,9 +298,10 @@ class VQAScorer:
                  std=transforms.IMAGENET_STD_1,
                  compute_dtype=torch.bfloat16, fold_bn: bool = True,
                  use_kernels: Optional[bool] = None,
-                 fused_attn: Optional[bool] = None):
+                 fused_attn: Optional[bool] = None,
+                 quantize: bool = False):
         self.device = _check_device(device)
-        self.model = _prepare_model(model, fold_bn, self.device)
+        self.model = _prepare_model(model, fold_bn, self.device, quantize)
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
         self.label2ans = {int(k): v for k, v in label2ans.items()}
@@ -405,11 +413,12 @@ class VideoQAScorer(_ResidentVideoScorer):
                  std=transforms.IMAGENET_STD_1,
                  compute_dtype=torch.bfloat16, fold_bn: bool = True,
                  use_kernels: Optional[bool] = None,
-                 fused_attn: Optional[bool] = None):
+                 fused_attn: Optional[bool] = None,
+                 quantize: bool = False):
         if task not in MC_QA_TASKS + OPEN_QA_TASKS:
             raise ValueError(f"unknown video-QA task {task!r}")
         self.device = _check_device(device)
-        self.model = _prepare_model(model, fold_bn, self.device)
+        self.model = _prepare_model(model, fold_bn, self.device, quantize)
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
         self.task = task
@@ -636,7 +645,11 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--warmup_resolutions", default="",
                     help="comma-separated HxW list to warm the encode path "
                          "for (e.g. '240x320,480x640')")
+    ap.add_argument("--quantize", type=int, default=0,
+                    help="int8-quantize the transformer's denses at load "
+                         "(per-channel scales, the CNN untouched)")
     args = ap.parse_args(argv)
+    quantize = bool(args.quantize)
     logging.basicConfig(level=logging.INFO)
     hws = [tuple(int(d) for d in r.split("x"))
            for r in args.warmup_resolutions.split(",") if r.strip()]
@@ -647,7 +660,7 @@ def main(argv: Optional[List[str]] = None):
             args.model_config, args.tokenizer_dir, args.e2e_weights_path,
             args.ans2label_path, device=args.device,
             max_img_size=args.max_img_size,
-            max_questions=args.max_captions)
+            max_questions=args.max_captions, quantize=quantize)
         vqa.warmup(hws or ((480, 640),))
         server = make_http_server(None, args.host, args.port, vqa=vqa)
     elif args.task in MC_QA_TASKS + OPEN_QA_TASKS:
@@ -658,7 +671,7 @@ def main(argv: Optional[List[str]] = None):
             num_frm=args.num_frm, fps=args.fps,
             max_img_size=args.max_img_size,
             max_questions=args.max_captions,
-            score_agg_func=args.score_agg_func)
+            score_agg_func=args.score_agg_func, quantize=quantize)
         videoqa.warmup(hws or ((240, 320),))
         server = make_http_server(None, args.host, args.port,
                                   videoqa=videoqa)
@@ -667,7 +680,7 @@ def main(argv: Optional[List[str]] = None):
             args.model_config, args.tokenizer_dir, args.e2e_weights_path,
             device=args.device, n_clips=args.n_clips, num_frm=args.num_frm,
             fps=args.fps, max_img_size=args.max_img_size,
-            max_captions=args.max_captions)
+            max_captions=args.max_captions, quantize=quantize)
         scorer.warmup(hws or ((240, 320),))
         server = make_http_server(scorer, args.host, args.port)
     LOGGER.info(f"serving on {args.host}:{args.port}")

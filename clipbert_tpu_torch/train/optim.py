@@ -149,10 +149,28 @@ def global_norm(grads) -> torch.Tensor:
         [torch.sum(torch.square(g.float())) for g in grads]).sum())
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+def split_global_norm(grads: Dict[str, torch.Tensor], split) -> torch.Tensor:
+    """The global norm of a tensor-parallel model's gradients: ``split`` is
+    (names of the leaves cut over the model axis, the model group). The
+    split leaves' squares are summed over the group; each replicated leaf
+    (every model rank holds the same one) counts once."""
+    names, group = split
+    device = next(iter(grads.values())).device
+    sq = [torch.stack([torch.zeros((), device=device)] + [
+              torch.sum(torch.square(g.float()))
+              for n, g in grads.items() if (n in names) == part]).sum()
+          for part in (True, False)]
+    torch.distributed.all_reduce(sq[0], group=group)
+    return torch.sqrt(sq[0] + sq[1])
+
+
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        split=None):
     """torch.nn.utils.clip_grad_norm_ semantics: scale by max_norm / (norm
-    + 1e-6) when the norm exceeds max_norm. Returns (clipped, norm)."""
-    norm = global_norm(grads.values())
+    + 1e-6) when the norm exceeds max_norm. Returns (clipped, norm).
+    ``split`` as in :func:`split_global_norm`."""
+    norm = (global_norm(grads.values()) if split is None
+            else split_global_norm(grads, split))
     coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return {n: g * coef.to(g.dtype) for n, g in grads.items()}, norm
 
@@ -192,13 +210,16 @@ def _elementwise_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 def adamw_update(params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], state: AdamWState,
                  meta: Dict[str, GroupMeta], cfg: OptimConfig,
-                 lr_transformer, lr_cnn) -> torch.Tensor:
+                 lr_transformer, lr_cnn, split=None) -> torch.Tensor:
     """One optimizer step over the trainable parameters, in place (their
     data, ``state``'s moments and its count); returns the global gradient
     norm before clipping, over the trainable parameters only (the
     reference clips its 8 groups; frozen parameters have no gradient).
     ``lr_transformer`` / ``lr_cnn`` are the schedules' fp32 values; a
-    parameter's lr is base * lr_mul by its group."""
+    parameter's lr is base * lr_mul by its group. Under tensor
+    parallelism ``split`` is (the names of the leaves cut over the model
+    axis, the model group): the norm is the whole model's
+    (:func:`split_global_norm`), and each rank updates its shards."""
     if cfg.optim not in ("adamw", "adam", "adamax"):
         raise ValueError(f"unknown optim {cfg.optim}")
     names = [n for n in params if meta[n].trainable]
@@ -207,7 +228,9 @@ def adamw_update(params: Dict[str, torch.Tensor],
         state.step += 1
         return torch.zeros(())
     if cfg.grad_norm is not None and cfg.grad_norm > 0:
-        grads, norm = clip_by_global_norm(grads, cfg.grad_norm)
+        grads, norm = clip_by_global_norm(grads, cfg.grad_norm, split)
+    elif split is not None:
+        norm = split_global_norm(grads, split)
     else:
         norm = global_norm(grads.values())
     state.step += 1

@@ -34,6 +34,7 @@ from clipbert_tpu_torch.core.mesh import Mesh
 from clipbert_tpu_torch.core.rng import RngGen, derive_seed
 from clipbert_tpu_torch.models import clipbert
 from clipbert_tpu_torch.ops import kernels_default
+from clipbert_tpu_torch.parallel.sharding import tp_split_dim
 from clipbert_tpu_torch.train import optim, sched
 from clipbert_tpu_torch.train.optim import AdamWState, OptimConfig
 
@@ -101,7 +102,8 @@ def init_train_state(model: clipbert.ClipBert,
 
 
 def _mil_forward(model, cfg, ts, batch, compute_dtype, use_kernels,
-                 fused_attn, train=False, rngs=None, remat=False):
+                 fused_attn, train=False, rngs=None, remat=False,
+                 mesh=None):
     vis = batch["visual_inputs"]
     B_v = vis.shape[0]
     nc = ts.train_n_clips
@@ -124,7 +126,8 @@ def _mil_forward(model, cfg, ts, batch, compute_dtype, use_kernels,
         model, cfg, {"text_input_ids": batch["text_input_ids"].repeat(nc, 1),
                      "text_input_mask": batch["text_input_mask"].repeat(nc, 1)},
         ts.head_type, compute_dtype=compute_dtype, visual_features=feats,
-        fused_attn=fused_attn, train=train, rngs=rngs, remat=remat)
+        fused_attn=fused_attn, train=train, rngs=rngs, remat=remat,
+        mesh=mesh)
     logits = out["logits"]                                  # (nc * B_t, L)
     if ts.head_type == "multi_choice":
         logits = logits.reshape(nc, B_t // ts.num_labels, ts.num_labels)
@@ -136,15 +139,17 @@ def _mil_forward(model, cfg, ts, batch, compute_dtype, use_kernels,
 def mil_forward_train(model: clipbert.ClipBert, cfg: ModelConfig,
                       ts: TaskSettings, batch: Dict[str, torch.Tensor],
                       rngs: Optional[RngGen],
-                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+                      compute_dtype=torch.bfloat16,
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The train form of :func:`mil_forward` (clipbert_tpu/train/steps.py:
     116-165 with train=True), under autograd: dropout from ``rngs``,
     ``ts.remat``, and the plain forms passed explicitly (use_kernels=False,
     fused_attn=False) whatever the device, as the JAX train step runs the
-    XLA CNN and the einsum core."""
+    XLA CNN and the einsum core. A tensor-parallel ``mesh`` runs the
+    encoder on this rank's Megatron shards (bert.encoder)."""
     return _mil_forward(model, cfg, ts, batch, compute_dtype,
                         use_kernels=False, fused_attn=False, train=True,
-                        rngs=rngs, remat=ts.remat)
+                        rngs=rngs, remat=ts.remat, mesh=mesh)
 
 
 @torch.inference_mode()
@@ -240,17 +245,28 @@ def task_loss(cfg: ModelConfig, ts: TaskSettings,
     return loss, metrics
 
 
+# metrics that are ratios of counts over the batch -> (numerator,
+# denominator) keys compute_loss returns beside them: a data-parallel step
+# sums each count over the ranks before it divides, as the JAX step divides
+# over the global batch (clipbert_tpu/train/steps.py:263-264). The counts
+# never leave the step.
+RATIO_METRICS = {"mlm_acc": ("mlm_correct", "mlm_valid")}
+_COUNT_KEYS = frozenset(k for pair in RATIO_METRICS.values() for k in pair)
+
+
 def pretrain_loss(cfg: ModelConfig, ts: TaskSettings,
                   model: clipbert.ClipBert, batch: Dict[str, torch.Tensor],
-                  rngs: Optional[RngGen], train: bool, compute_dtype
+                  rngs: Optional[RngGen], train: bool, compute_dtype,
+                  mesh: Optional[Mesh] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """mlm_loss.mean() + itm_loss.mean() (run_pretrain.py:387-395) with the
-    MLM token and ITM accuracies; the plain forms, as mil_forward_train."""
+    MLM token and ITM accuracies (and the MLM counts, RATIO_METRICS); the
+    plain forms, as mil_forward_train."""
     out = clipbert.clipbert_forward(
         model, cfg, batch, "pretrain", compute_dtype=compute_dtype,
         group_size=ts.group_size, train=train, rngs=rngs,
         remat=ts.remat if train else False, use_kernels=False,
-        fused_attn=False)
+        fused_attn=False, mesh=mesh)
     losses = clipbert.pretrain_losses(
         cfg, out,
         batch.get("mlm_labels") if ts.use_mlm else None,
@@ -265,8 +281,10 @@ def pretrain_loss(cfg: ModelConfig, ts: TaskSettings,
         mlm_labels = batch["mlm_labels"].reshape(-1).long()
         valid = mlm_labels != -100
         pred = out["mlm_scores"].reshape(-1, cfg.vocab_size).argmax(-1)
-        metrics["mlm_acc"] = (torch.where(valid, pred == mlm_labels, False)
-                              .sum() / valid.sum().clamp(min=1))
+        correct = torch.where(valid, pred == mlm_labels, False).sum()
+        metrics["mlm_acc"] = correct / valid.sum().clamp(min=1)
+        metrics["mlm_correct"] = correct.float()
+        metrics["mlm_valid"] = valid.sum().float()
         total = total + mlm
     if "itm_loss" in losses:
         itm = losses["itm_loss"].mean()
@@ -281,28 +299,81 @@ def pretrain_loss(cfg: ModelConfig, ts: TaskSettings,
 def compute_loss(model: clipbert.ClipBert, cfg: ModelConfig,
                  ts: TaskSettings, batch: Dict[str, torch.Tensor],
                  step_seed: Optional[int], train: bool,
-                 compute_dtype=torch.bfloat16
+                 compute_dtype=torch.bfloat16,
+                 mesh: Optional[Mesh] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss of one (micro-)batch and its metrics; ``step_seed`` seeds
-    the step's dropout (core/rng.py) when ``train``."""
+    the step's dropout (core/rng.py) when ``train``; a tensor-parallel
+    ``mesh`` as in mil_forward_train."""
     rngs = RngGen(step_seed if train else None,
                   batch["text_input_ids"].device)
     if ts.head_type == "pretrain":
         return pretrain_loss(cfg, ts, model, batch, rngs, train,
-                             compute_dtype)
+                             compute_dtype, mesh)
     if train:
         clip_logits = mil_forward_train(model, cfg, ts, batch, rngs,
-                                        compute_dtype)
+                                        compute_dtype, mesh)
     else:
         clip_logits = _mil_forward(model, cfg, ts, batch, compute_dtype,
-                                   use_kernels=False, fused_attn=False)
+                                   use_kernels=False, fused_attn=False,
+                                   mesh=mesh)
     return task_loss(cfg, ts, batch, clip_logits)
+
+
+# elements per flat buffer of the data-parallel gradient all-reduce
+# (128 MiB of fp32): the BERT-base + ResNet-50 model's ~135M trainable
+# elements go in 5 calls
+GRAD_BUCKET_NUMEL = 1 << 25
+
+
+def _all_reduce_mean(grads: Dict[str, torch.Tensor], mesh: Mesh) -> None:
+    """``grads`` (fp32) averaged over the data group, in place of the
+    dict's values: the leaves are packed into flat buffers of at most
+    GRAD_BUCKET_NUMEL elements (one leaf larger than that gets its own),
+    each all-reduced (SUM) once and divided by ``n_data``."""
+    names, buckets, size = list(grads), [[]], 0
+    for n in names:
+        k = grads[n].numel()
+        if buckets[-1] and size + k > GRAD_BUCKET_NUMEL:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(n)
+        size += k
+    for bucket in buckets:
+        flat = torch.cat([grads[n].reshape(-1) for n in bucket])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.data_group)
+        flat.div_(mesh.n_data)
+        for n, part in zip(bucket, flat.split([grads[n].numel()
+                                               for n in bucket])):
+            grads[n] = part.view_as(grads[n])
+
+
+def _reduce_micro_metrics(per_micro, mesh: Mesh):
+    """Each micro-batch's (loss, metrics) of this rank -> those of the
+    global micro-batch over the data group, in one all-reduce: the loss
+    and plain means averaged over the (equal) shards, a RATIO_METRICS
+    ratio divided from its summed counts."""
+    keys = sorted(per_micro[0][1])
+    rows = torch.stack([torch.stack([l.float()] + [m[k].float()
+                                                    for k in keys])
+                        for l, m in per_micro])
+    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    out = []
+    for row in rows:
+        vals = dict(zip(keys, row[1:]))
+        metrics = {k: v / mesh.n_data for k, v in vals.items()}
+        for k, (num, den) in RATIO_METRICS.items():
+            if k in vals:
+                metrics[k] = vals[num] / vals[den].clamp(min=1)
+        out.append((row[0] / mesh.n_data, metrics))
+    return out
 
 
 def make_train_step(cfg: ModelConfig, ts: TaskSettings, oc: OptimConfig,
                     ss: ScheduleSettings, meta: Dict[str, optim.GroupMeta],
                     accum_steps: int = 1,
-                    compute_dtype=torch.bfloat16) -> Callable:
+                    compute_dtype=torch.bfloat16,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """The train step: step(state, batch, step_seed) -> (state, metrics),
     updating ``state`` in place. With ``accum_steps`` > 1 every batch
     tensor carries a leading (accum_steps, ...) micro-batch axis; each
@@ -312,7 +383,32 @@ def make_train_step(cfg: ModelConfig, ts: TaskSettings, oc: OptimConfig,
     micro-batches' dropout seeds are derived from ``step_seed``. The
     schedules are evaluated at the post-increment step ``opt.step + 1``
     (run_video_qa.py:515-525). Metrics are device tensors (no sync) plus
-    the two lrs."""
+    the two lrs.
+
+    Under a ``mesh`` (core/mesh.py) the step is one replica of the JAX
+    step on a global batch (clipbert_tpu/train/steps.py:292-366 with
+    ``mesh=`` and ``state_shardings``), written as its collectives:
+
+     - data axis: ``batch`` is this rank's shard of the global batch (each
+       rank the same size). Each rank accumulates its gradients as above;
+       then the fp32 gradients are all-reduced once per update over
+       ``mesh.data_group`` in a few flat buffers and divided by
+       ``n_data``, and the metrics of each micro-batch are reduced to the
+       global micro-batch's (:func:`_reduce_micro_metrics`). Clipping, the
+       norm and AdamW then run on identical gradients on every rank. With
+       more than one data rank the dropout seeds fold in the rank's data
+       index, so ranks draw different masks for different examples.
+     - model axis: the model holds this rank's Megatron shards
+       (parallel/sharding.py::shard_model), and so do the moments
+       (:func:`init_train_state` after the cut). The forward's
+       collectives carry their gradients (ops/linear.py), and the global
+       norm sums the split leaves' squares over ``mesh.model_group``,
+       counting each replicated leaf once.
+
+    Overlapping the gradient all-reduce with the backward is not done
+    (ROADMAP)."""
+    data_parallel = mesh is not None and dist.is_initialized()
+    model_parallel = mesh is not None and mesh.n_model > 1
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              step_seed: int):
@@ -320,26 +416,20 @@ def make_train_step(cfg: ModelConfig, ts: TaskSettings, oc: OptimConfig,
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
+        if data_parallel and mesh.n_data > 1:
+            step_seed = derive_seed(step_seed, mesh.data_idx)
+        per_micro = []              # each micro-batch's (loss, metrics)
         with torch.enable_grad():
-            if accum_steps == 1:
-                loss, metrics = compute_loss(model, cfg, ts, batch,
-                                             step_seed, True, compute_dtype)
-                loss.backward()
-                loss = loss.detach()
-            else:
-                lsum, ms = 0.0, []
-                for i in range(accum_steps):
-                    mb = {k: v[i] for k, v in batch.items()}
-                    l, m = compute_loss(model, cfg, ts, mb,
-                                        derive_seed(step_seed, i), True,
-                                        compute_dtype)
-                    l.backward()
-                    lsum = lsum + l.detach()
-                    ms.append(m)
-                loss = lsum / accum_steps
-                metrics = {k: torch.stack([m[k].detach().float()
-                                           for m in ms]).mean()
-                           for k in ms[0]}
+            for i in range(accum_steps):
+                mb = batch if accum_steps == 1 else \
+                    {k: v[i] for k, v in batch.items()}
+                seed = step_seed if accum_steps == 1 else \
+                    derive_seed(step_seed, i)
+                l, m = compute_loss(model, cfg, ts, mb, seed, True,
+                                    compute_dtype, mesh)
+                l.backward()
+                per_micro.append((l.detach(),
+                                  {k: v.detach() for k, v in m.items()}))
         grads = {}
         for n, p in params.items():
             if not meta[n].trainable:
@@ -347,12 +437,30 @@ def make_train_step(cfg: ModelConfig, ts: TaskSettings, oc: OptimConfig,
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             grads[n] = g / accum_steps if accum_steps > 1 else g
             p.grad = None
+        if data_parallel:
+            _all_reduce_mean(grads, mesh)
+            per_micro = _reduce_micro_metrics(per_micro, mesh)
+        per_micro = [(l, {k: v for k, v in m.items()
+                          if k not in _COUNT_KEYS}) for l, m in per_micro]
+        if accum_steps == 1:
+            loss, metrics = per_micro[0]
+        else:
+            lsum = 0.0
+            for l, _ in per_micro:
+                lsum = lsum + l
+            loss = lsum / accum_steps
+            metrics = {k: torch.stack([m[k].float()
+                                       for _, m in per_micro]).mean()
+                       for k in per_micro[0][1]}
         lr_t, lr_c = ss.lrs(state.opt.step + 1)
+        split = None
+        if model_parallel:
+            split = (frozenset(n for n in grads if tp_split_dim(n)
+                               is not None), mesh.model_group)
         grad_norm = optim.adamw_update(params, grads, state.opt, meta, oc,
-                                       lr_t, lr_c)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(loss=loss, grad_norm=grad_norm, lr=float(lr_t),
-                       cnn_lr=float(lr_c))
+                                       lr_t, lr_c, split=split)
+        metrics = dict(metrics, loss=loss, grad_norm=grad_norm,
+                       lr=float(lr_t), cnn_lr=float(lr_c))
         return state, metrics
 
     return step

@@ -13,7 +13,16 @@ has just launched. Batches come from loader.PrefetchLoader, already on the
 device. Checkpoints are written in the JAX package's ``.npz`` key scheme
 (ckpt/from_jax.py::to_jax_flat) by the shared async writer: the JAX
 package resumes the port's bundles and the port resumes the JAX package's.
-One process trains; data-parallel training is a later slice.
+
+Under a process group (core/mesh.py::maybe_init_distributed) the loop
+trains data-parallel, as the JAX trainer does over its mesh's data axis:
+each process loads its ``train_batch_size`` share of the global batch
+(tasks/common.py::build_train_loader), the step all-reduces the gradients
+over the data group (train/steps.py::make_train_step with ``mesh``), the
+weights start from process 0's (broadcast, then checked bit for bit on
+every process), validation shards over the processes and merges, and
+only the main process writes (meta, logs, checkpoints, restore bundles).
+Every process restores the bundle on auto-resume.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from clipbert_tpu_torch.ckpt import checkpoint, torch_import
 from clipbert_tpu_torch.ckpt.from_jax import (load_jax_params, model_state,
                                               port_values, to_jax_flat)
 from clipbert_tpu_torch.core.config import ModelConfig, RunConfig
+from clipbert_tpu_torch.core.mesh import make_mesh
 from clipbert_tpu_torch.core.rng import derive_seed
 from clipbert_tpu_torch.data import transforms
 from clipbert_tpu_torch.models import clipbert
@@ -297,10 +307,7 @@ def train(run_cfg: RunConfig, model_cfg: ModelConfig, spec: TaskSpec,
 def _train_loop(run_cfg: RunConfig, model_cfg: ModelConfig, spec: TaskSpec,
                 max_steps, stop_signal) -> Dict[str, Any]:
     run_cfg.validate()
-    if dist.process_count() > 1:
-        raise NotImplementedError(
-            "data-parallel training waits for ROADMAP queue 1 item 12; "
-            "train in one process")
+    mesh = make_mesh() if torch.distributed.is_initialized() else None
     device = device_for(run_cfg)
     main = dist.is_main_process()
     tb = TB_LOGGER if main else NoOp()
@@ -343,7 +350,7 @@ def _train_loop(run_cfg: RunConfig, model_cfg: ModelConfig, spec: TaskSpec,
     accum = run_cfg.gradient_accumulation_steps
     step_fn = steps.make_train_step(model_cfg, spec.settings, oc, ss, meta,
                                     accum_steps=accum,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype, mesh=mesh)
     eval_fn = steps.make_eval_step(model_cfg, spec.settings,
                                    compute_dtype=compute_dtype) \
         if spec.head_type != "pretrain" else \
@@ -363,6 +370,11 @@ def _train_loop(run_cfg: RunConfig, model_cfg: ModelConfig, spec: TaskSpec,
             global_step, tree = resumed
             load_bundle(state, tree)
             LOGGER.info(f"resumed from restore bundle at step {global_step}")
+    if mesh is not None:
+        # every replica starts from process 0's weights and moments
+        replica = replica_tensors(state)
+        dist.broadcast_tensors(replica)
+        dist.check_replicas_equal(replica, "initial weights")
     # async: only the D2H copy blocks the loop; serialization and the disk
     # write run on the checkpoint writer thread (drained before return)
     saver = (checkpoint.ModelSaver(out_dir, async_write=True)
@@ -484,10 +496,20 @@ def _train_loop(run_cfg: RunConfig, model_cfg: ModelConfig, spec: TaskSpec,
     tb.flush()
     # every enqueued checkpoint write is durable before returning: the
     # SIGTERM path relies on the bundle being on disk when the process exits
+    # (and, under a process group, before any process reads it again)
     checkpoint.drain_writes()
+    dist.barrier()
     return {"model": state.model, "global_step": global_step,
             "history": history, "state": state,
             "task_loss": {t: m.val for t, m in task_meters.items()}}
+
+
+def replica_tensors(state: steps.TrainState) -> List[torch.Tensor]:
+    """What every data-parallel replica must hold alike: the model's
+    parameters and buffers and the moments, in a fixed order."""
+    return (list(model_state(state.model).values())
+            + [state.opt.mu[n] for n in sorted(state.opt.mu)]
+            + [state.opt.nu[n] for n in sorted(state.opt.nu)])
 
 
 def restore_bundle(state: steps.TrainState) -> Dict:

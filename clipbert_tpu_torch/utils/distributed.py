@@ -53,6 +53,53 @@ def broadcast_object(obj: Any, root: int = 0) -> Any:
     return box[0]
 
 
+def barrier() -> None:
+    """Wait for every process (the identity without a process group)."""
+    if process_count() > 1:
+        dist.barrier()
+
+
+@torch.no_grad()
+def broadcast_tensors(tensors: Sequence[torch.Tensor], root: int = 0,
+                      group=None) -> None:
+    """Each tensor overwritten, in place, by the root's: the tensors are
+    packed by dtype into flat buffers, one broadcast each. The identity
+    without a process group."""
+    if process_count() == 1:
+        return
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.broadcast(flat, src=root, group=group)
+        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(part.view_as(t))
+
+
+def tensors_digest(tensors: Sequence[torch.Tensor]) -> str:
+    """A SHA-256 of the tensors' bytes, shapes and dtypes, in order: equal
+    digests on two ranks mean bit-identical tensors."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous().cpu()
+        h.update(f"{tuple(t.shape)}{t.dtype}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_replicas_equal(tensors: Sequence[torch.Tensor], what: str) -> str:
+    """Raise unless every process holds bit-identical ``tensors``; returns
+    the digest."""
+    digest = tensors_digest(tensors)
+    digests = all_gather_objects(digest)
+    if len(set(digests)) != 1:
+        raise RuntimeError(f"the processes hold different {what}: "
+                           f"digests {digests}")
+    return digest
+
+
 def _rank_main(fn, rank, world, backend, init_file, args, out, threads,
                timeout_s):
     from clipbert_tpu_torch.core.mesh import init_distributed
@@ -61,7 +108,8 @@ def _rank_main(fn, rank, world, backend, init_file, args, out, threads,
         init_distributed(backend, f"file://{init_file}", world, rank,
                          timeout_s)
         result = fn(rank, world, *args)
-        dist.destroy_process_group()
+        if dist.is_initialized():      # fn may have left the group
+            dist.destroy_process_group()
         payload = ("ok", result)
     except Exception:
         payload = ("error", traceback.format_exc())

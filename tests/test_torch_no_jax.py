@@ -58,6 +58,8 @@ print("PORT_OK")
 # modules the later slices of the port added; the walk above must reach
 # them all
 NEW_MODULES = ["clipbert_tpu_torch.core.mesh",
+               "clipbert_tpu_torch.verify_ckpt",
+               "clipbert_tpu_torch.data.ingest",
                "clipbert_tpu_torch.utils.distributed",
                "clipbert_tpu_torch.parallel",
                "clipbert_tpu_torch.parallel.sharding",
