@@ -131,7 +131,9 @@ Phases; any failure raises and the script exits non-zero:
     as ``train17_max_abs_err``; phase 18b's validation launches over both
     ranks as ``train18_launches`` and its worst error as
     ``train18_max_abs_err``; phase 19's int8 requests' launches as
-    ``int8_launches`` and verify_ckpt's as ``verify_ckpt_launches``),
+    ``int8_launches`` and verify_ckpt's as ``verify_ckpt_launches``;
+    fused_attention_shard_heads's record reads its own count in each:
+    ``train18_launches`` over 18a's steps and 18b's ranks),
     then {"ok": true, "device": {...}}.
 
 The ranks of phases 10 and 11 share the one card, so their process group
@@ -196,10 +198,11 @@ fails or outlives its phase's timeout fails the script.
     each within 16a's bounds of one process on the global batch, each data
     group's replicas bit-identical after the update. 18b: run_video_
     retrieval's training through its CLI flags (--coordinator_address
-    file://... --num_processes 2 --process_id i, CLIPBERT_DIST_BACKEND
-    gloo) on 2 ranks x 8 videos (the config's 16 a step) x 8 clips x 2
+    file://... --num_processes 2 --process_id i, naming the spawner's gloo
+    group) on 2 ranks x 8 videos (the config's 16 a step) x 8 clips x 2
     frames at 448^2, bf16, for 2 updates and one validation sharded over
-    the ranks. Counts from 0 in each rank: no kernel in a train step; the
+    the ranks. Counts from 0 in each rank: no kernel in a train step, no
+    fused_attention_shard_heads launch at all (nor in 18a or phase 19); the
     validation 12 tc attention launches a caption minibatch, 36 wg + 1 tc
     stem an encode. The ranks' losses, final weights and moments and
     merged matrices are bit-identical; the merged matrix is bit-identical
@@ -3594,7 +3597,8 @@ def _dp_step(cfg, ts, model, batch, mesh, seed=0):
     ``batch`` (this rank's share of it under a data-parallel mesh; the
     model cut to this rank's shards under a tensor-parallel one). Returns
     (loss, grad norm, the moments mu, a digest of every replicated
-    tensor, the step's kernel launches)."""
+    tensor, the step's kernel launches, its fused_attention_shard_heads
+    launches)."""
     import copy
     from clipbert_tpu_torch.train import optim, trainer
     from clipbert_tpu_torch.utils.distributed import tensors_digest
@@ -3612,13 +3616,14 @@ def _dp_step(cfg, ts, model, batch, mesh, seed=0):
     state = steps.init_train_state(model, meta)
     step = steps.make_train_step(cfg, ts, oc, steps.ScheduleSettings(
         **DP_SCHED), meta, compute_dtype=torch.float32, mesh=mesh)
-    before = _counts()
+    before, shard = _counts(), fa.SHARD_HEADS_LAUNCHES
     state, m = step(state, {k: torch.from_numpy(x).cuda()
                             for k, x in batch.items()}, seed)
     launched = sum(_counts()) - sum(before)
+    shard = fa.SHARD_HEADS_LAUNCHES - shard
     return (float(m["loss"]), float(m["grad_norm"]),
             {n: t.cpu() for n, t in state.opt.mu.items()},
-            tensors_digest(trainer.replica_tensors(state)), launched)
+            tensors_digest(trainer.replica_tensors(state)), launched, shard)
 
 
 def _dp_rank(rank, world, model_parallel, vocab_size):
@@ -3642,21 +3647,28 @@ def _dp_rank(rank, world, model_parallel, vocab_size):
 
 
 def phase_dp_step(tok, d):
-    """18a. Returns the number of groups checked."""
+    """18a. Returns the fused_attention_shard_heads launches of its steps
+    (every rank's), read as each step ran."""
     from clipbert_tpu_torch.parallel import tp_split_dim
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, ts, model, batch = _dp_setup(len(tok))
     b1 = 0.9                          # OptimConfig's betas[0]
     _reset_counts()
-    loss, norm, mu, _, launched = _dp_step(cfg, ts, model, batch, None)
+    loss, norm, mu, _, launched, shard = _dp_step(cfg, ts, model, batch,
+                                                  None)
     _expect("18a reference step, kernels", launched, 0)
+    _expect("18a reference step, fused_attention_shard_heads", shard, 0)
     t0 = time.perf_counter()
     one = spawn_ranks(_dp_rank, 1, (1, len(tok)), backend="nccl",
                       workdir=os.path.join(d, "dp1"),
                       timeout_s=RANK_TIMEOUT_S, threads=2)[0]
-    (la, na, mua, da, ka), (lb, nb, mub, db, kb), (lc, nc_, _, dc, _) = \
-        one["runs"]
+    (la, na, mua, da, ka, sa), (lb, nb, mub, db, kb, sb), \
+        (lc, nc_, _, dc, _, sc) = one["runs"]
+    for i, n in enumerate((sa, sb, sc)):
+        _expect(f"18a NCCL rank, run {i + 1}, fused_attention_shard_heads",
+                n, 0)
+    shard = sa + sb + sc
     if one["backend"] != "nccl":
         raise AssertionError(f"18a: the 1-rank group ran {one['backend']}")
     if da != dc:
@@ -3671,7 +3683,8 @@ def phase_dp_step(tok, d):
           f"(gradients all-reduced through NCCL, metrics reduced) is "
           f"bit-identical to the step with no mesh (loss {lb:.7f}, grad norm "
           f"{nb:.7e}, every parameter and moment: digest {db[:16]}), cuDNN "
-          f"deterministic; 0 kernel launches")
+          f"deterministic; 0 kernel launches (fused_attention_shard_heads "
+          f"{sa}, {sb}, {sc})")
     for world, model_parallel in ((2, 1), (2, 2)):
         n_data = world // model_parallel
         what = f"18a {n_data} data x {model_parallel} model"
@@ -3682,11 +3695,14 @@ def phase_dp_step(tok, d):
                                                 f"{model_parallel}"),
                            timeout_s=RANK_TIMEOUT_S, threads=2)
         worst = {"cnn": 0.0, "transformer": 0.0}
-        digests = {}
+        digests, shards = {}, []
         for out in outs:
-            lr_, nr, mur, dr, kr = out["step"]
+            lr_, nr, mur, dr, kr, sr = out["step"]
             di, mi = out["idx"]
             _expect(f"{what} rank at {(di, mi)}, kernels", kr, 0)
+            _expect(f"{what} rank at {(di, mi)}, "
+                    "fused_attention_shard_heads", sr, 0)
+            shards.append(sr)
             digests.setdefault(mi, set()).add(dr)
             for w, (a, b) in (("loss", (lr_, loss)),
                               ("grad norm", (nr, norm))):
@@ -3712,23 +3728,24 @@ def phase_dp_step(tok, d):
               f"global batch; worst gradient gap / leaf max: transformer "
               f"{worst['transformer']:.3e} (bound {TRAIN_BERT_REL}), CNN "
               f"{worst['cnn']:.3e} (bound {TRAIN_CNN_REL}); each data "
-              f"group's replicas bit-identical; 0 kernel launches")
-    return 3
+              f"group's replicas bit-identical; 0 kernel launches "
+              f"(fused_attention_shard_heads by rank {shards})")
+        shard += sum(shards)
+    return shard
 
 
 def _train18_rank(rank, world, argv, rendezvous):
-    """18b in a spawned rank on cuda:0: leave the spawner's group and run
-    ``run_video_retrieval.main`` with the launch flags, which joins its
-    own group over gloo (CLIPBERT_DIST_BACKEND: NCCL refuses two ranks on
-    one device). Records each step (CUDA events, its all-reduce's wall
-    with the card synchronized around it, its launches), the validation
-    (launches, matrix) and the shapes the kernels ran at."""
+    """18b in a spawned rank on cuda:0, in the spawner's gloo group (NCCL
+    refuses two ranks on one device): ``run_video_retrieval.main`` gets
+    the launch flags of that group (``rendezvous`` is its file), finds it
+    joined and checks that they name it. Records each step (CUDA events,
+    its all-reduce's wall with the card synchronized around it, its
+    launches), the validation (launches, matrix) and the shapes the
+    kernels ran at."""
     from clipbert_tpu_torch.tasks import run_video_retrieval as rvr
     from clipbert_tpu_torch.train import trainer
     from clipbert_tpu_torch.utils.distributed import tensors_digest
     _rank_setup()
-    torch.distributed.destroy_process_group()
-    os.environ["CLIPBERT_DIST_BACKEND"] = "gloo"
     step_rec, reduce_ms, val_rec, shapes = [], [], [], set()
     real = (steps.make_train_step, steps._all_reduce_mean, trainer.train)
     kernel_mods = (("fused_attention", fa), ("matmul_bn_act", mba),
@@ -3778,10 +3795,11 @@ def _train18_rank(rank, world, argv, rendezvous):
                            "--num_processes", str(world),
                            "--process_id", str(rank)])
     torch.cuda.synchronize()
-    counts = _counts()
+    counts, shard = _counts(), fa.SHARD_HEADS_LAUNCHES
     return {"steps": [(loss, a.elapsed_time(b), k)
                       for loss, (a, b), k in step_rec],
             "reduce_ms": reduce_ms, "val": val_rec, "counts": counts,
+            "shard_heads": shard,
             "global_step": res["global_step"],
             "digest": tensors_digest(trainer.replica_tensors(res["state"])),
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -3790,8 +3808,9 @@ def _train18_rank(rank, world, argv, rendezvous):
 
 def phase_train18(tok, d, path, rows, gen):
     """18b. Returns the validations' launches summed over the ranks
-    (attention, matmul_bn_act, fused_stem_pool) and each kernel's worst
-    error at their shapes."""
+    (attention, matmul_bn_act, fused_stem_pool), each kernel's worst error
+    at their shapes, and the ranks' fused_attention_shard_heads
+    launches."""
     import gc
     from clipbert_tpu_torch.ckpt.from_jax import load_jax_params
     from clipbert_tpu_torch.tasks import run_video_retrieval as rvr
@@ -3807,9 +3826,11 @@ def phase_train18(tok, d, path, rows, gen):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    workdir = os.path.join(d, "train18")
+    # (spawn_ranks's rendezvous file under its workdir)
     outs = spawn_ranks(_train18_rank, TRAIN18_RANKS,
-                       (argv, os.path.join(d, "train18_rendezvous")),
-                       backend="gloo", workdir=os.path.join(d, "train18"),
+                       (argv, os.path.join(workdir, "rendezvous")),
+                       backend="gloo", workdir=workdir,
                        timeout_s=RANK_TIMEOUT_S, threads=4)
     spawn_s = time.perf_counter() - t0
     cfg = load_run_config(argv)
@@ -3829,6 +3850,8 @@ def phase_train18(tok, d, path, rows, gen):
             raise AssertionError(f"18b rank {r}: {len(out['val'])} "
                                  "validations")
         _, vl = out["val"][0]
+        _expect(f"18b rank {r}, fused_attention_shard_heads",
+                out["shard_heads"], 0)
         if list(out["counts"]) != vl:
             raise AssertionError(f"18b rank {r}: launches {out['counts']} "
                                  f"outside the validation's {vl}")
@@ -3889,7 +3912,8 @@ def phase_train18(tok, d, path, rows, gen):
                                         out["reduce_ms"])
               + f"; peak memory {out['peak_gib']:.2f} GiB "
               f"(max_memory_allocated); validation launches "
-              f"{out['val'][0][1]}; card {card}")
+              f"{out['val'][0][1]}, fused_attention_shard_heads "
+              f"{out['shard_heads']}; card {card}")
     print(f"18b: {spawn_s:.1f} s from spawn to join; losses "
           + ", ".join(f"{x:.4f}" for x in losses[0]) + " on both ranks; "
           f"final weights and moments bit-identical on both ranks; the "
@@ -3898,7 +3922,7 @@ def phase_train18(tok, d, path, rows, gen):
           f"kernels at the validation's {len(shapes)} shapes within their "
           f"bounds ({json.dumps(err)}); phase 18b "
           f"{time.perf_counter() - t18:.1f} s")
-    return total, err
+    return total, err, sum(out["shard_heads"] for out in outs)
 
 
 # ---------------------------------------------------------------------------
@@ -3976,7 +4000,8 @@ def _check_int8_products(what, calls):
 
 def phase_int8(model, cfg, tok):
     """19a and 19b. Returns the main path's launches (attention,
-    matmul_bn_act, fused_stem_pool)."""
+    matmul_bn_act, fused_stem_pool) and its fused_attention_shard_heads
+    launches."""
     import copy
     from clipbert_tpu_torch.ops import linear as lin
     t19 = time.perf_counter()
@@ -3985,7 +4010,7 @@ def phase_int8(model, cfg, tok):
     common = dict(device="cuda", compute_dtype=torch.bfloat16, num_frm=2,
                   max_img_size=448, max_txt_len=20, max_captions=32)
     qmodel = copy.deepcopy(model)
-    total = [0] * 3
+    total, shard_total = [0] * 3, 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -4042,8 +4067,10 @@ def phase_int8(model, cfg, tok):
                         else 0)
         finally:
             lin.int_mm = real
-        counts = _counts()
+        counts, shard = _counts(), fa.SHARD_HEADS_LAUNCHES
+        _expect(f"19 {what}, int8, fused_attention_shard_heads", shard, 0)
         total = [a + b for a, b in zip(total, counts[:3])]
+        shard_total += shard
         padded = _check_int8_products(what, calls)
         lat, gap = _scorer_turns(what, sc, request, REQUEST_SIZES, REPEATS)
         per = "; ".join(
@@ -4054,7 +4081,8 @@ def phase_int8(model, cfg, tok):
               f" {per}; int8 vs bf16 probabilities max_abs_diff {gap:.3e} "
               f"(bound {QUANT_ATOL}); {len(calls)} int8 product shapes, "
               f"each bit-identical to the CPU's, padded (M, K, N) {padded}; "
-              f"int8 launches {counts[:3]}; card {card}")
+              f"int8 launches {counts[:3]}, fused_attention_shard_heads "
+              f"{shard}; card {card}")
     print(f"19 transformer denses (encoder, pooler, head) of the retrieval "
           f"model: {fp32_b / 2**20:.1f} MiB resident fp32 in the bf16 "
           f"scorer ({bf16_b / 2**20:.1f} MiB as bf16), {int8_b / 2**20:.1f} "
@@ -4062,13 +4090,14 @@ def phase_int8(model, cfg, tok):
           f"{time.perf_counter() - t19:.1f} s")
     del cases, vqa, qmodel
     torch.cuda.empty_cache()
-    return total
+    return total, shard_total
 
 
 def phase_verify_ckpt(cfg, run_cfg, tok, d, path, rows, matrix):
     """19c: clipbert_tpu_torch.verify_ckpt on a deploy .npz of phase 7's
     model (the seeded init, unfolded) over phase 7's store and captions.
-    Returns its launches."""
+    Returns its launches (attention, matmul_bn_act, fused_stem_pool) and
+    its fused_attention_shard_heads launches."""
     from clipbert_tpu_torch import verify_ckpt
     from clipbert_tpu_torch.ckpt.from_jax import model_state, to_jax_flat
     gen = torch.Generator(device="cuda").manual_seed(0)    # _model's
@@ -4095,7 +4124,8 @@ def phase_verify_ckpt(cfg, run_cfg, tok, d, path, rows, matrix):
     t0 = time.perf_counter()
     got = verify_ckpt.run_verification(npz, txt, path, d, config=conf_path)
     wall = time.perf_counter() - t0
-    launches = _counts()
+    launches, shard = _counts(), fa.SHARD_HEADS_LAUNCHES
+    _expect("19c verify_ckpt, fused_attention_shard_heads", shard, 0)
     g = -(-EVAL_VIDEOS // run_cfg.inference_video_batch_size)
     n_cap = -(-EVAL_CAPTIONS // run_cfg.inference_batch_size)
     _expect("19c verify_ckpt, attention on tc", launches[3],
@@ -4117,9 +4147,10 @@ def phase_verify_ckpt(cfg, run_cfg, tok, d, path, rows, matrix):
     print(f"19c verify_ckpt on a deploy .npz of phase 7's model over phase "
           f"7's store (strict load, BN folded): wall {wall:.2f} s; R@K equal "
           f"to phase 7's {json.dumps(have)}; score matrix max_abs_diff "
-          f"{gap:.3e} from phase 7's; launches {launches[:3]}; report:\n"
+          f"{gap:.3e} from phase 7's; launches {launches[:3]}, "
+          f"fused_attention_shard_heads {shard}; report:\n"
           + verify_ckpt.format_report(got))
-    return launches[:3]
+    return launches[:3], shard
 
 
 def main() -> None:
@@ -4171,14 +4202,15 @@ def main() -> None:
         train17_launches, train17_err = phase_train17(d, path)
         torch.cuda.empty_cache()
         t18 = time.perf_counter()
-        phase_dp_step(tok, d)
-        train18_launches, train18_err = phase_train18(tok, d, path, rows,
-                                                      gen)
+        train18_shard = phase_dp_step(tok, d)
+        train18_launches, train18_err, shard = phase_train18(
+            tok, d, path, rows, gen)
+        train18_shard += shard
         print(f"phase 18: {time.perf_counter() - t18:.1f} s")
         t19 = time.perf_counter()
-        int8_launches = phase_int8(model, model_cfg, tok)
-        verify_launches = phase_verify_ckpt(model_cfg, run_cfg, tok, d,
-                                            path, rows, matrix)
+        int8_launches, int8_shard = phase_int8(model, model_cfg, tok)
+        verify_launches, verify_shard = phase_verify_ckpt(
+            model_cfg, run_cfg, tok, d, path, rows, matrix)
         print(f"phase 19: {time.perf_counter() - t19:.1f} s")
 
     def record(name, source, replaces, n, err, t, design, qa=None):
@@ -4204,9 +4236,11 @@ def main() -> None:
                        int8_launches=int8_launches[i],
                        verify_ckpt_launches=verify_launches[i])
         else:
-            # phases 18-19 run no tensor-parallel scoring
-            out.update(train18_launches=0, int8_launches=0,
-                       verify_ckpt_launches=0)
+            # read in phases 18a-b (every rank's steps and 18b's main path),
+            # 19a-b and 19c; none of them scores tensor-parallel
+            out.update(train18_launches=train18_shard,
+                       int8_launches=int8_shard,
+                       verify_ckpt_launches=verify_shard)
         return out
 
     tc = ("body tc: QK^T and PV on mma.sync m16n8k16 (bf16 in, fp32 "

@@ -17,12 +17,11 @@ Ranks are laid out row-major as ``np.array(devices).reshape(n_data,
 n_model)`` lays out devices: rank ``r`` sits at ``divmod(r, n_model)``.
 
 The backend is always named by the caller of :func:`init_distributed`
-(the task runners name :func:`default_backend` of their device, or
-``CLIPBERT_DIST_BACKEND``): ``nccl`` when each rank owns its own card,
-``gloo`` for CPU tensors, or for ranks that share one card (NCCL refuses
-two ranks on one device; gloo's all_reduce, all_gather and broadcast take
-CUDA tensors through the host). Nothing here picks another backend when
-the chosen one fails.
+(the task runners name :func:`default_backend` of their device): ``nccl``
+when each rank owns its own card, ``gloo`` for CPU tensors, or for ranks
+that share one card (NCCL refuses two ranks on one device; gloo's
+all_reduce, all_gather and broadcast take CUDA tensors through the host).
+Nothing here picks another backend when the chosen one fails.
 """
 
 from __future__ import annotations
@@ -91,15 +90,22 @@ def maybe_init_distributed(cfg=None) -> bool:
     ``env://``). Plain single-process runs stay zero-config. A partial
     topology raises: it must not turn into N independent single-process
     runs that each believe they are the main process. The backend is
-    ``CLIPBERT_DIST_BACKEND`` where set (``gloo`` for ranks that share a
-    card), else :func:`default_backend` of ``cfg.device``. Idempotent;
-    returns True when a process group is (already) initialized."""
-    if dist.is_initialized():
-        return True
+    :func:`default_backend` of ``cfg.device``. Idempotent: in a group this
+    process has already joined (its launcher's) nothing is joined, and
+    ``num_processes``/``process_id``, where given, must name that group's
+    size and this rank. Returns True when a process group is (already)
+    initialized."""
     coord = (getattr(cfg, "coordinator_address", None)
              or os.environ.get("CLIPBERT_COORDINATOR") or None)
     nproc = _flag(cfg, "num_processes", "CLIPBERT_NUM_PROCESSES")
     pid = _flag(cfg, "process_id", "CLIPBERT_PROCESS_ID")
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if nproc not in (-1, world) or pid not in (-1, rank):
+            raise ValueError(
+                f"num_processes/process_id ({nproc}, {pid}) do not name "
+                f"the process group already joined (rank {rank} of {world})")
+        return True
     torchrun = "MASTER_ADDR" in os.environ and "RANK" in os.environ
     if coord is None and torchrun:
         coord = "env://"
@@ -118,9 +124,8 @@ def maybe_init_distributed(cfg=None) -> bool:
             f"process_id ({nproc}, {pid}): pass all three (or launch with "
             "torchrun)")
     init_method = coord if "://" in coord else f"tcp://{coord}"
-    backend = (os.environ.get("CLIPBERT_DIST_BACKEND")
-               or default_backend(getattr(cfg, "device", "cuda")))
-    init_distributed(backend, init_method, nproc, pid)
+    init_distributed(default_backend(getattr(cfg, "device", "cuda")),
+                     init_method, nproc, pid)
     return True
 
 

@@ -151,9 +151,10 @@ def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
     Training: ``dropout_seed`` (the JAX ``dropout_key``) seeds three
     dropouts a layer (attention probabilities, attention output, FFN
     output), each from its own generator built inside the layer from
-    (seed, layer, site); a truthy ``remat`` checkpoints every layer
-    (``jax.checkpoint`` of the layer body), recomputing it, with the same
-    masks, in the backward pass.
+    (seed, layer, site), and the model index for the attention
+    probabilities under a tensor-parallel mesh; a truthy ``remat``
+    checkpoints every layer (``jax.checkpoint`` of the layer body),
+    recomputing it, with the same masks, in the backward pass.
     """
     act = ACT2FN[cfg.hidden_act]
     eps = cfg.layer_norm_eps
@@ -167,10 +168,14 @@ def encoder(p: Encoder, hidden: torch.Tensor, mask_bias: torch.Tensor,
         return linear(x, layer)
 
     def layer_fn(hidden, lp, i):
+        # the attention probabilities' masks fold in the model index: each
+        # rank draws its own heads' (one process draws every head's); the
+        # other two act on activations every model rank holds alike
+        paths = ((i, 0, mesh.model_idx) if tp else (i, 0)), (i, 1), (i, 2)
         g_attn, g_res, g_ffn = (
             generator(None if dropout_seed is None
-                      else derive_seed(dropout_seed, i, j), device)
-            for j in range(3))
+                      else derive_seed(dropout_seed, *path), device)
+            for path in paths)
         ctx = multi_head_attention(hidden, lp.attention.self,
                                    cfg.num_attention_heads, mask_bias,
                                    fused=fused_attn, mesh=mesh,

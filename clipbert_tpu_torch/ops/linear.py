@@ -106,9 +106,6 @@ _QMAX = 127.0
 # _int_mm_out_cuda): more than 16 rows, K and N positive multiples of 8
 _INT_MM_MIN_ROWS = 17
 _INT_MM_ALIGN = 8
-# int_mm calls that had to pad (the pooler and head rows of a small
-# request, the retrieval head's N = 2, VQA's N = 3129)
-PADDED = 0
 
 
 class QuantLinear(nn.Module):
@@ -150,13 +147,11 @@ def int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     them (rows to 17, K and N to multiples of 8) and the result sliced
     back: integer sums are exact, so no kept element changes. The same
     padding runs on every device."""
-    global PADDED
     M, K = a.shape
     N = w.shape[0]
     Mp = max(M, _INT_MM_MIN_ROWS)
     Kp, Np = _round_up(K, _INT_MM_ALIGN), _round_up(N, _INT_MM_ALIGN)
     if (Mp, Kp, Np) != (M, K, N):
-        PADDED += 1
         a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M))
         w = torch.nn.functional.pad(w, (0, Kp - K, 0, Np - N))
     return torch._int_mm(a.contiguous(), w.t())[:M, :N]

@@ -22,7 +22,9 @@ over the data group (train/steps.py::make_train_step with ``mesh``), the
 weights start from process 0's (broadcast, then checked bit for bit on
 every process), validation shards over the processes and merges, and
 only the main process writes (meta, logs, checkpoints, restore bundles).
-Every process restores the bundle on auto-resume.
+Every process restores the bundle on auto-resume, and then takes process
+0's weights, moments and step counts; a stop requested on any process
+stops every process at the same step.
 """
 
 from __future__ import annotations
@@ -370,11 +372,21 @@ def _train_loop(run_cfg: RunConfig, model_cfg: ModelConfig, spec: TaskSpec,
             global_step, tree = resumed
             load_bundle(state, tree)
             LOGGER.info(f"resumed from restore bundle at step {global_step}")
+    stop_group = None
     if mesh is not None:
-        # every replica starts from process 0's weights and moments
+        # every replica starts from process 0's weights, moments and update
+        # counts, whichever bundle (or none) this process found
+        global_step, state.opt.step = dist.broadcast_object(
+            (global_step, state.opt.step))
         replica = replica_tensors(state)
         dist.broadcast_tensors(replica)
-        dist.check_replicas_equal(replica, "initial weights")
+        dist.check_replicas_equal(
+            replica + [torch.tensor([global_step, state.opt.step])],
+            "initial weights and step counts")
+        # the processes agree on a stop before acting on it (a host flag,
+        # so over gloo: no device synchronization)
+        if torch.distributed.get_backend() != "gloo":
+            stop_group = torch.distributed.new_group(backend="gloo")
     # async: only the D2H copy blocks the loop; serialization and the disk
     # write run on the checkpoint writer thread (drained before return)
     saver = (checkpoint.ModelSaver(out_dir, async_write=True)
@@ -424,7 +436,9 @@ def _train_loop(run_cfg: RunConfig, model_cfg: ModelConfig, spec: TaskSpec,
     pending = None
     train_iter = iter(spec.train_loader)
     while global_step < num_train_steps:
-        if stop_signal():
+        # a stop seen by any process stops every process at this step: one
+        # that stopped alone would leave the others in a collective
+        if dist.any_process(stop_signal(), stop_group):
             LOGGER.info(f"stop requested at step {global_step}: "
                         "saving restore bundle and exiting")
             if restorer is not None and main:

@@ -53,6 +53,18 @@ def broadcast_object(obj: Any, root: int = 0) -> Any:
     return box[0]
 
 
+def any_process(flag: bool, group=None) -> bool:
+    """True on every process iff ``flag`` is true on any of them: one MAX
+    all-reduce of a host integer over ``group``, which must take CPU
+    tensors (gloo), so the device is not synchronized. ``flag`` itself
+    without a process group."""
+    if process_count() == 1:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())
+
+
 def barrier() -> None:
     """Wait for every process (the identity without a process group)."""
     if process_count() > 1:
@@ -108,8 +120,7 @@ def _rank_main(fn, rank, world, backend, init_file, args, out, threads,
         init_distributed(backend, f"file://{init_file}", world, rank,
                          timeout_s)
         result = fn(rank, world, *args)
-        if dist.is_initialized():      # fn may have left the group
-            dist.destroy_process_group()
+        dist.destroy_process_group()
         payload = ("ok", result)
     except Exception:
         payload = ("error", traceback.format_exc())

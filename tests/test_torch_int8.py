@@ -127,21 +127,28 @@ def test_merged_qkv_equals_three_products_and_jax(rng_np):
                                atol=1e-6)
 
 
-def test_int_mm_pads_to_the_cuda_rules(rng_np):
+def test_int_mm_pads_to_the_cuda_rules(rng_np, monkeypatch):
     """One row, K = 20, N = 2 (the retrieval head's product for a single
     caption): zero-padded to 17 x 24 @ 24 x 8, sliced back, exact; a shape
-    inside the rules does not pad."""
-    a = torch.from_numpy(rng_np.integers(-127, 128, (1, 20)).astype(np.int8))
-    w = torch.from_numpy(rng_np.integers(-127, 128, (2, 20)).astype(np.int8))
-    before = lin.PADDED
-    got = lin.int_mm(a, w)
-    assert lin.PADDED == before + 1
-    assert got.dtype == torch.int32 and got.shape == (1, 2)
-    assert torch.equal(got.long(), a.long() @ w.long().t())
-    a = torch.from_numpy(rng_np.integers(-127, 128, (24, 32)).astype(np.int8))
-    w = torch.from_numpy(rng_np.integers(-127, 128, (16, 32)).astype(np.int8))
-    assert torch.equal(lin.int_mm(a, w).long(), a.long() @ w.long().t())
-    assert lin.PADDED == before + 1
+    inside the rules does not pad (the shapes torch._int_mm is given)."""
+    shapes = []
+    real = torch._int_mm
+
+    def recording(a, b):
+        shapes.append((tuple(a.shape), tuple(b.shape)))
+        return real(a, b)
+
+    monkeypatch.setattr(torch, "_int_mm", recording)
+    for (M, K, N), want in (((1, 20, 2), ((17, 24), (24, 8))),
+                            ((24, 32, 16), ((24, 32), (32, 16)))):
+        a = torch.from_numpy(rng_np.integers(-127, 128, (M, K))
+                             .astype(np.int8))
+        w = torch.from_numpy(rng_np.integers(-127, 128, (N, K))
+                             .astype(np.int8))
+        got = lin.int_mm(a, w)
+        assert shapes.pop() == want
+        assert got.dtype == torch.int32 and got.shape == (M, N)
+        assert torch.equal(got.long(), a.long() @ w.long().t())
 
 
 @pytest.fixture(scope="module")

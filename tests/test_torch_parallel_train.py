@@ -295,16 +295,25 @@ def test_retrieval_step_matches_jax(checked, case):
 
 def test_ranks_draw_their_own_dropout_masks(results):
     """With dropout on, on a (2 x 2) mesh: the two data rows draw
-    different masks (their seeds fold in the data index), the two model
-    ranks of a row the same ones (their activations are replicated), and
-    the replicas of a data group still end bit-identical."""
+    different masks (their seeds fold in the data index); the two model
+    ranks of a row draw the same masks on the replicated activations
+    (the embeddings') and their own on their heads' attention
+    probabilities (those seeds fold in the model index: one process draws
+    every head's independently); the replicas of a data group still end
+    bit-identical."""
     out, _ = results
     r = [o["ret_2x2_dropout"] for o in out[4]]
-    assert all(o["draws"] is not None for o in r)
+    assert all(o["draws"] is not None and o["attn_draws"] is not None
+               for o in r)
     np.testing.assert_array_equal(r[0]["draws"], r[1]["draws"])
     np.testing.assert_array_equal(r[2]["draws"], r[3]["draws"])
     assert r[0]["draws"].shape == r[2]["draws"].shape
     assert not np.array_equal(r[0]["draws"], r[2]["draws"])
+    heads = MODEL_KW["num_attention_heads"] // 2
+    for o in r:
+        assert o["attn_draws"].shape[1] == heads, o["attn_draws"].shape
+    for a, b in ((0, 1), (2, 3), (0, 2)):
+        assert not np.array_equal(r[a]["attn_draws"], r[b]["attn_draws"])
     for m in range(2):
         assert r[m]["digest"] == r[2 + m]["digest"]
     assert all(np.isfinite(o["metrics"]["loss"]) for o in r)

@@ -138,7 +138,7 @@ def results(tmp_path_factory, pre_inputs):
     groups = {2: [
         step_job("pre_2x1", 1, tree, MODEL_KW, PRE_TS, batch),
         step_job("pre_1x2", 2, tree, MODEL_KW, PRE_TS, batch),
-        ("trainer", "trainer_run",                # last: it leaves the group
+        ("trainer", "trainer_run",
          (_trainer_argv(root, root / "run2", 1),
           str(root / "trainer_rendezvous")))]}
 
@@ -150,7 +150,7 @@ def results(tmp_path_factory, pre_inputs):
         out, (ref, one) = run_groups(tmp_path_factory, groups, local)
     finally:
         # the runs' checkpoints and restore bundles: ~1.6 GB
-        for run in ("run1", "run2"):
+        for run in ("run1", "run2", "run2_rank1"):
             shutil.rmtree(root / run, ignore_errors=True)
     return out, ref, one
 
@@ -179,9 +179,12 @@ def test_two_process_trainer(results, record_property):
     """``run_video_retrieval.main(... --num_processes 2 ...)`` at one
     video a process: a gloo group; its per-step losses equal one process
     at two videos a step (a stop after step 1, then a resumed run to step
-    2, in both); the resumed run starts from the step-1 bundle; only rank
-    0 writes; both ranks end bit-identical; each validation's merged
-    metrics equal the one process's."""
+    2, in both). The stop is asked on rank 0 only and both ranks stop at
+    step 1; rank 1's output directory is its own, so only rank 0 finds
+    the step-1 bundle, and both resume from it (rank 1 takes rank 0's
+    step counts with its weights). Only rank 0 writes; both ranks end
+    bit-identical; each validation's merged metrics equal the one
+    process's."""
     out, _, one = results
     record_property("spawn_s", round(out["spawn_s"][2], 2))
     r0, r1 = (r["trainer"] for r in out[2])
@@ -201,7 +204,7 @@ def test_two_process_trainer(results, record_property):
                     if k != "score_matrix":
                         assert got[k] == want[k], k
     assert r0["digest"] == r1["digest"]
-    assert r1["writes"] == []
+    assert r1["writes"] == [] and "restore.npz" not in r1["out_files"]
     kinds = {k for k, _ in r0["writes"]}
     assert {"_write_npz", "save_training_meta", "create"} <= kinds
     assert "restore.npz" in r0["out_files"] and \

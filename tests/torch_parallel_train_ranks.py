@@ -15,6 +15,7 @@ from clipbert_tpu_torch.ckpt.from_jax import load_jax_params, model_state
 from clipbert_tpu_torch.core.config import ModelConfig
 from clipbert_tpu_torch.core.mesh import make_mesh
 from clipbert_tpu_torch.models import bert, clipbert
+from clipbert_tpu_torch.ops import attention
 from clipbert_tpu_torch.parallel import shard_model
 from clipbert_tpu_torch.tasks import run_video_retrieval as rvr
 from clipbert_tpu_torch.train import optim, steps, trainer
@@ -40,11 +41,13 @@ def data_shard(batch, n_data, data_idx, accum, group):
     return {k: np.stack([m[k] for m in micros]) for k in batch}
 
 
-def _record_first_dropout_draws():
-    """Wrap models/bert.py's dropout so the first masked call (the text
-    embeddings') records its uniform draws, from a copy of its generator."""
+def _record_first_dropout_draws(module):
+    """Wrap ``module``'s dropout so its first masked call records its
+    uniform draws, from a copy of its generator: models/bert.py's first is
+    the text embeddings', ops/attention.py's the first layer's attention
+    probabilities' (this rank's heads)."""
     seen = []
-    inner = bert.dropout
+    inner = module.dropout
 
     def recorded(x, rate, generator):
         if generator is not None and rate > 0 and not seen:
@@ -54,7 +57,7 @@ def _record_first_dropout_draws():
                                    device=x.device).numpy())
         return inner(x, rate, generator)
 
-    bert.dropout = recorded
+    module.dropout = recorded
     return seen, inner
 
 
@@ -63,7 +66,8 @@ def train_step(rank, world, model_parallel, tree, cfg_kw, ts_kw, opt_kw,
     """One make_train_step(mesh=) update on a fresh (world / mp, mp) mesh
     from the tree's weights, cut to this rank's shards, on this rank's data
     shard of the global ``batch``. Returns the metrics, the mesh index, a
-    digest of every tensor, the first dropout draws, and the updated
+    digest of every tensor, the first dropout draws (the embeddings' and
+    the attention probabilities'), and the updated
     parameters and both moments by port name (shards where cut): the
     encoder's leaves from each rank of data row 0, the rest (replicated on
     every rank) from rank 0 only. The digests show the other data rows
@@ -82,12 +86,13 @@ def train_step(rank, world, model_parallel, tree, cfg_kw, ts_kw, opt_kw,
         mesh=mesh)
     local = data_shard(batch, mesh.n_data, mesh.data_idx, accum,
                        ts.group_size)
-    seen, inner = _record_first_dropout_draws()
+    seen, inner = _record_first_dropout_draws(bert)
+    seen_attn, inner_attn = _record_first_dropout_draws(attention)
     try:
         state, m = step(state, {k: torch.from_numpy(v)
                                 for k, v in local.items()}, seed)
     finally:
-        bert.dropout = inner
+        bert.dropout, attention.dropout = inner, inner_attn
 
     def keep(n):
         return mesh.data_idx == 0 and (
@@ -103,7 +108,8 @@ def train_step(rank, world, model_parallel, tree, cfg_kw, ts_kw, opt_kw,
             "idx": (mesh.data_idx, mesh.model_idx),
             "digest": distributed.tensors_digest(
                 trainer.replica_tensors(state)),
-            "draws": seen[0] if seen else None}
+            "draws": seen[0] if seen else None,
+            "attn_draws": seen_attn[0] if seen_attn else None}
 
 
 def _record_writes():
@@ -147,34 +153,38 @@ def _record_losses():
 
 
 def trainer_run(rank, world, argv, rendezvous):
-    """The retrieval trainer as each process of a launch runs it: this
-    rank leaves the spawner's process group, and
-    ``run_video_retrieval.main`` joins its own through
-    ``--coordinator_address file://... --num_processes --process_id``, or,
-    with ``rendezvous`` None, runs in one process with no group. A stop
-    signal ends that run after its first step (a restore bundle at step
-    1); a second ``start_training(max_steps=2)`` in the same process (and
-    group) resumes from it. Returns each run's per-step losses, history
-    and final step, the files this rank wrote, and a digest of the final
-    weights and moments. The tensorboard package is hidden (its import
-    costs seconds): the scalars go to log/scalars.jsonl."""
-    torch.distributed.destroy_process_group()
+    """The retrieval trainer as each process of a launch runs it, in the
+    spawner's process group: ``run_video_retrieval.main`` gets the launch
+    flags (``--coordinator_address file://... --num_processes
+    --process_id``), finds the group joined and checks that they name it.
+    Rank 1's ``--output_dir`` is its own (output directories not shared
+    across hosts), so only rank 0 sees the restore bundle. A stop signal on
+    rank 0 alone ends that run after its first step on both ranks (a
+    restore bundle at step 1); a second ``start_training(max_steps=2)`` in
+    the same group resumes from it. Returns each run's per-step losses,
+    history and final step, the files this rank wrote, its output
+    directory's files, and a digest of the final weights and moments. The
+    tensorboard package is hidden (its import costs seconds): the scalars
+    go to log/scalars.jsonl."""
     sys.modules["torch.utils.tensorboard"] = None
     trainer.TB_LOGGER = logger.TensorboardLogger()
     writes, losses = _record_writes(), _record_losses()
     real_train = trainer.train
+    if rank:
+        at = argv.index("--output_dir") + 1
+        argv = argv[:at] + [f"{argv[at]}_rank{rank}"] + argv[at + 1:]
 
     def train_one_step(*args, **kwargs):
         polls = []
-        kwargs["stop_signal"] = lambda: polls.append(1) or len(polls) > 1
+        kwargs["stop_signal"] = (lambda: polls.append(1) or len(polls) > 1) \
+            if rank == 0 else (lambda: False)
         return real_train(*args, **kwargs)
 
-    topology = [] if rendezvous is None else [
-        "--coordinator_address", f"file://{rendezvous}",
-        "--num_processes", str(world), "--process_id", str(rank)]
     trainer.train = train_one_step
     try:
-        first = rvr.main(argv + topology)
+        first = rvr.main(argv + [
+            "--coordinator_address", f"file://{rendezvous}",
+            "--num_processes", str(world), "--process_id", str(rank)])
     finally:
         trainer.train = real_train
     first_losses = list(losses)
@@ -186,11 +196,11 @@ def trainer_run(rank, world, argv, rendezvous):
             "val": [[h.get("val") for h in r["history"]]
                     for r in (first, second)],
             "writes": writes,
-            "backend": (torch.distributed.get_backend()
-                        if torch.distributed.is_initialized() else None),
+            "backend": torch.distributed.get_backend(),
             "digest": distributed.tensors_digest(
                 trainer.replica_tensors(second["state"])),
-            "out_files": sorted(os.listdir(cfg.output_dir))}
+            "out_files": (sorted(os.listdir(cfg.output_dir))
+                          if os.path.isdir(cfg.output_dir) else [])}
 
 
 def run_jobs(rank, world, jobs):
