@@ -16,7 +16,7 @@ Phases; any failure raises and the script exits non-zero:
     shapes, fp32 and bf16, contiguous operands, strided views of one merged
     QKV tensor and views whose rows miss 16-byte alignment, each case
     printing the body that ran (ops/fused_attention.py::_plan: the
-    tensor-core body "tc" for bf16 with dh % 16 == 0 and S <= 128, else the
+    tensor-core body "tc" for bf16 with dh % 16 == 0 and S <= 176, else the
     fp32 CUDA-core body "v2") and checking the counters agree. At the
     serving and eval shapes, the tc body, the v2 body (forced, and held to
     the same bound), the plain version and SDPA are timed in turns, each as
@@ -105,18 +105,22 @@ Phases; any failure raises and the script exits non-zero:
     frameqa and msrvtt_qa, the multiple-choice head for action. First the
     kernels at the new shapes, each against its plain version and timed
     in turns as graph replays beside the library call and the bound:
-    attention at S = 149-169 (the v2 body: past the tensor-core body's
-    S <= 128) and at MSRVTT-MC's eval batch, the stem at 1 and 32 frames
-    of 768^2, the 36 fused 1x1 convs of one 768^2 frame. Then the scorers:
-    VQAScorer on one 480x640 JPEG at 768 px with 1, 5 and 32 questions of
-    text 20; VideoQAScorer on frameqa and action (1 clip x 1 frame at 768
-    px, text 25) and msrvtt_qa (8 clips x 2 frames at 448 px, text 100).
-    Counts from 0: every request launches attention 12 times on the body
-    _plan names, 36 fused 1x1 convs on wg and one stem on tc. The kernel
-    form against the cuDNN + einsum form: probabilities within PROB_ATOL,
-    grid features within FEAT_REL, and at 768 px phase 6's planted faults
-    outside it. Then the runners' own eval loops on seeded stores
-    (run_video_qa.build_validate for action and frameqa and
+    attention at S = 149-169 and at MSRVTT-MC's eval batch (the
+    tensor-core body; also at the ragged S = 129, 137 and 176, in the
+    merged-QKV and the unaligned layout, and timed beside the v2 body
+    forced), the stem at 1 and 32 frames of 768^2, the 36 fused 1x1 convs
+    of one 768^2 frame. Then the scorers: VQAScorer on one 480x640 JPEG at
+    768 px with 1, 5 and 32 questions of text 20; VideoQAScorer on frameqa
+    and action (1 clip x 1 frame at 768 px, text 25) and msrvtt_qa (8
+    clips x 2 frames at 448 px, text 100). Counts from 0: every request
+    launches attention 12 times, all on the tensor-core body, 36 fused 1x1
+    convs on wg and one stem on tc. VQA's and MSRVTT-QA's 32-question
+    request timed end to end with attention on tc against v2 (forced for
+    this measurement only), windows tc, v2, v2, tc, v2, tc, tc, v2. The
+    kernel form against the cuDNN + einsum form: probabilities within
+    PROB_ATOL, grid features within FEAT_REL, and at 768 px phase 6's
+    planted faults outside it. Then the runners' own eval loops on seeded
+    stores (run_video_qa.build_validate for action and frameqa and
     run_msrvtt_mc.inference_mc at 16 clips on phase 7's videos,
     run_vqa.build_validate on 32 seeded JPEGs): make_eval_step's fused
     core against its einsum core in turns (k, e, e, k), then the cuDNN +
@@ -178,7 +182,7 @@ fails or outlives its phase's timeout fails the script.
     against the files), on phase 15's 32 JPEGs and phase 7's 16 videos,
     for TRAIN17_STEPS updates and one validation each. Counts from 0
     before each run: no kernel in a train step; the validation 12
-    attention launches a forward on the body _plan names (v2 at S =
+    attention launches a forward, all on the tensor-core body (S =
     149-174), 36 wg 1x1 launches and one tc stem an encode. Prints each
     run's step time (CUDA events), images or clips a second, peak memory
     and validation wall. Then each validation's batches again in the
@@ -214,7 +218,7 @@ fails or outlives its phase's timeout fails the script.
     RetrievalScorer(quantize=True) at 1 and 16 clips and VQAScorer(
     quantize=True) (3129 answers, 768 px) at full width beside their bf16
     scorers on the same weights. Counts from 0 per int8 request: attention
-    12 times on its body, 36 wg 1x1 convs, one tc stem. Each int8 product
+    12 times on tc, 36 wg 1x1 convs, one tc stem. Each int8 product
     shape (ops/linear.py::int_mm, the padded ones included: the pooler
     and head rows, N = 2, N = 3129) bit-identical to the CPU's on the same
     operands; the int8 probabilities within 0.08 of bf16's; p50 request
@@ -293,8 +297,11 @@ SHAPES = [(32, 69, 12, 64, "serve 1 clip x 32 captions"),
           (129, 7, 4, 8, "ragged"),
           (3, 1, 2, 16, "tensor-core edge: one key"),
           (5, 17, 3, 48, "tensor-core edge: 2 warps, 15 padded keys"),
-          (2, 128, 2, 128, "tensor-core limit: S 128, dh 128"),
-          (3, 129, 2, 64, "just past the tensor-core limit"),
+          (2, 128, 2, 128, "tensor-core body: S 128, dh 128"),
+          (3, 129, 2, 64, "ragged: 9 tiles, 15 padded keys"),
+          (3, 137, 2, 64, "ragged: 9 tiles, 7 padded keys"),
+          (2, 176, 2, 128, "tensor-core limit: S 176, dh 128"),
+          (3, 177, 2, 64, "just past the tensor-core limit"),
           (2, 620, 12, 64, "longest sequence")]
 TIMED = SHAPES[:3]
 # fp32: both sides sum the same fp32 products in another order (one warp
@@ -554,8 +561,9 @@ def _attention_check(B, S, H, dh, what, dtype, layout, gen, body=None):
     staging = ("16-byte" if plan.body == "v2" else "cp.async") \
         if plan.vec else "element-wise"
     print(f"kernel vs plain {(B, S, H, dh)} {what} {str(dtype)[6:]} "
-          f"{layout}: body {plan.body} ({32 * plan.warps} threads, "
-          f"{plan.smem_bytes} B shared, {staging} staging"
+          f"{layout}: body {plan.body} ({plan.grid} blocks of "
+          f"{32 * plan.warps} threads, {plan.smem_bytes} B shared, "
+          f"{staging} staging"
           f"{', forced' if body else ''}): max_abs_err {err:.3e} "
           f"{'ok' if ok else 'FAIL'}")
     if ran != (1, int(plan.body == "tc")):
@@ -1951,8 +1959,9 @@ QA_VQA_LABELS = 3129     # configs/vqa_base_resnet50.json
 QA_OPEN_LABELS = 1500    # the open-ended video-QA tasks' seeded vocabulary
 QA_IMAGES = 32
 # The joint sequences at each QA config's own width (B, S, H, dh, what):
-# S = max_txt_len + (max_img_size / 64)^2 grid tokens. All but MSRVTT-MC
-# run past the tensor-core body's S <= 128 (fa.TC_MAX_SEQ), on v2.
+# S = max_txt_len + (max_img_size / 64)^2 grid tokens, all on the
+# tensor-core body (S <= fa.TC_MAX_SEQ = 176), which splits the 10-11
+# query tiles of S = 149-169 over 2 blocks per (batch item, head).
 QA_ATTN_SHAPES = [
     (32, 20 + 144, 12, 64, "VQA: 32 questions at 768 px, text 20"),
     (32, 25 + 144, 12, 64, "TGIF frameqa: 32 questions at 768 px, text 25"),
@@ -1961,6 +1970,10 @@ QA_ATTN_SHAPES = [
      "text 100"),
     (16 * 5 * 16, 20 + 49, 12, 64, "MSRVTT-MC eval batch: 16 videos x 5 "
      "options x 16 clips")]
+# ragged lengths past 8 tiles: a last tile of 1, 9 and 16 live rows
+QA_RAGGED = [(3, 129, 12, 64, "ragged"), (3, 137, 12, 64, "ragged"),
+             (3, 176, 12, 64, "ragged: the tensor-core limit")]
+QA_LAYOUTS = ("merged-qkv views", "unaligned views")
 QA_STEM_FRAMES = (1, 32)             # frames of 768^2
 # (scorer, model, task, scorer settings): each config's resolution, text
 # length, frames and clips (configs/*_base_resnet50.json)
@@ -2005,12 +2018,14 @@ def _attn_body(S):
 
 def _expect_qa(what, d, S, calls, encodes):
     """Launch deltas of ``calls`` scoring calls at joint length S and
-    ``encodes`` CNN encodes: 12 attention launches a call on the body
-    _plan names, 36 fused 1x1 convs on wg and one stem on tc an encode."""
+    ``encodes`` CNN encodes: 12 attention launches a call, all on the
+    tensor-core body, 36 fused 1x1 convs on wg and one stem on tc an
+    encode."""
     body = _attn_body(S)
+    if body != "tc":
+        raise AssertionError(f"{what}: attention at S = {S} plans {body}")
     _expect(f"{what}, attention", d[0], 12 * calls)
-    _expect(f"{what}, attention on the tensor-core body", d[3],
-            12 * calls if body == "tc" else 0)
+    _expect(f"{what}, attention on the tensor-core body", d[3], 12 * calls)
     _expect(f"{what}, matmul_bn_act", d[1], MBA_PER_ENCODE * encodes)
     _expect(f"{what}, matmul_bn_act on the wgmma body", d[4],
             MBA_PER_ENCODE * encodes)
@@ -2028,9 +2043,18 @@ def phase_qa_kernels(gen):
     times = {"fused_attention": {}, "matmul_bn_act": {},
              "fused_stem_pool": {}}
     err = dict.fromkeys(times, 0.0)
+    for B, S, H, dh, what in QA_ATTN_SHAPES + QA_RAGGED:
+        if _attn_body(S) != "tc":
+            raise AssertionError(f"attention at {(B, S, H, dh)} plans "
+                                 f"{_attn_body(S)}")
+        for layout in QA_LAYOUTS:
+            err["fused_attention"] = max(
+                err["fused_attention"], _attention_check(
+                    B, S, H, dh, what, torch.bfloat16, layout, gen))
     for B, S, H, dh, what in QA_ATTN_SHAPES:
-        err["fused_attention"] = max(err["fused_attention"], _attention_check(
-            B, S, H, dh, what, torch.bfloat16, "merged-qkv views", gen))
+        # the earlier body, timed below beside the tensor-core body
+        _attention_check(B, S, H, dh, what, torch.bfloat16,
+                         "merged-qkv views", gen, body="v2")
         times["fused_attention"][str((B, S, H, dh))] = dict(
             _time_attention(B, S, H, dh, what, gen), body=_attn_body(S),
             launches_per_call=12)
@@ -2151,6 +2175,16 @@ def phase_qa_scorers(models, tok):
               f"p50 encode {np.median(enc) * 1e3:.2f} ms, p50 request "
               + ", ".join(f"{n} question(s) {np.median(req[n]) * 1e3:.2f} ms"
                           for n in sizes))
+
+        # ---- the 32-question request, attention on tc against v2 ---------
+        if task in ("vqa", "msrvtt_qa"):
+            ms, windows = _windows_in_turns(
+                lambda: _qa_request(forms["kernels"], task, frames, qs, 32),
+                _attention_body, ("tc", "v2"))
+            print(f"{what} attention bodies end to end, 32-question request "
+                  f"(encode + scoring, {8 * REPEATS} requests each, in "
+                  f"turns): p50 tc {np.median(ms['tc']):.2f} ms, v2 "
+                  f"{np.median(ms['v2']):.2f} ms; window p50s {windows}")
 
         # ---- the kernel form against the cuDNN + einsum form -------------
         probs = {f: _qa_request(sc, task, frames, qs, 5)[2]
@@ -3256,8 +3290,8 @@ def _check_forms17(name, model, eval_rec):
 def _check_shapes17(shapes, gen, err):
     """Each kernel against its plain version at every shape the training
     validations launched it at (``shapes``, from _shape_recorder), on the
-    body the validation ran: v2 attention (S > 128), wg 1x1 convs and the
-    tc stem for bf16. ``err`` collects each kernel's worst error."""
+    body the validation ran: tc attention (S = 149-174), wg 1x1 convs and
+    the tc stem for bf16. ``err`` collects each kernel's worst error."""
     for kind, key in sorted(shapes, key=str):
         if kind == "fused_attention":
             B, S, H, dh, dtype = key
@@ -3279,7 +3313,7 @@ def phase_train17(d, path):
     """17b: each of TRAIN17_CONFIGS through its runner's start_training at
     the config's width and batch, warm-started from the seeded reference
     checkpoints. Counts from 0 before each run: its train steps launch no
-    kernel, its validation attention (12 a forward, on body v2 at S =
+    kernel, its validation attention (12 a forward, on body tc at S =
     149-174), matmul_bn_act (36 an encode, on wg) and the stem (one an
     encode, on tc). Each validation is then checked against the cuDNN +
     einsum form and each kernel at the validations' shapes
@@ -3404,8 +3438,8 @@ def phase_train17(d, path):
         S = _seq_len(cfg.max_txt_len, cfg.max_img_size)
         _expect(f"17b {name} validation, attention", vl[0],
                 model_cfg.num_hidden_layers * n_fwd)
-        _expect(f"17b {name} validation, attention on tc (S = {S} runs "
-                f"v2)", vl[3], 0 if _attn_body(S) == "v2" else vl[0])
+        _expect(f"17b {name} validation, attention on tc (S = {S})", vl[3],
+                vl[0])
         _expect(f"17b {name} validation, matmul_bn_act", vl[1],
                 MBA_PER_ENCODE * n_fwd)
         _expect(f"17b {name} validation, matmul_bn_act on wg", vl[4], vl[1])
@@ -4061,10 +4095,7 @@ def phase_int8(model, cfg, tok):
                 _expect(f"19 {what}, int8, matmul_bn_act on wg", dl[4],
                         MBA_PER_ENCODE)
                 _expect(f"19 {what}, int8, fused_stem_pool on tc", dl[5], 1)
-                _expect(f"19 {what}, int8, attention on its body", dl[3],
-                        dl[0] if _attn_body(_seq_len(
-                            20, 768 if "VQA" in what else 448)) == "tc"
-                        else 0)
+                _expect(f"19 {what}, int8, attention on tc", dl[3], dl[0])
         finally:
             lin.int_mm = real
         counts, shard = _counts(), fa.SHARD_HEADS_LAUNCHES
@@ -4246,9 +4277,10 @@ def main() -> None:
     tc = ("body tc: QK^T and PV on mma.sync m16n8k16 (bf16 in, fp32 "
           "accumulate), exact full-row fp32 softmax in registers, P packed "
           "into the PV A fragments, K/V staged as bf16 by cp.async; one "
-          "block per (batch item, head), one warp per 16 query rows "
-          "(earlier_ms: body v2, fp32 CUDA cores, kept for fp32, S > 128 "
-          "and dh % 16 != 0)")
+          "warp per 16 query rows, S <= 176, a (batch item, head)'s query "
+          "tiles split over blocks of at most 6 warps that each stage all "
+          "its K/V and key bias (earlier_ms: body v2, fp32 CUDA cores, kept "
+          "for fp32, S > 176 and dh % 16 != 0)")
     print(json.dumps({"kernels": [
         record("fused_attention", "fused_attention.cu",
                "clipbert_tpu/ops/pallas_attention.py:73", launches[0],

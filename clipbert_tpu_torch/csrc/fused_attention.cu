@@ -27,59 +27,81 @@
 // derives again and refuses if it differs (kPlanMismatch).
 //
 // Body "tc" (tensor cores; bf16, dh a multiple of 16 up to 128, S up to
-// kTcMaxSeq = 128, the whole main path). The products move to the tensor
-// cores: on the fp32 CUDA cores (67 TFLOP/s) the two products alone at
-// B = 512 would take ~0.11 ms, above the byte bound.
-//   - One block per (batch item, head), blockIdx.x = b * H + h, so
-//     neighbouring blocks read neighbouring heads of the same rows. One
-//     warp per 16 query rows: S is padded to SP = 16 * KT inside the kernel
-//     (S = 69: 80 rows and keys, 5 warps); nothing is padded in memory.
+// kTcMaxSeq = 176: every joint length of the repo's configs, 69 for
+// retrieval and MSRVTT-MC, 149 for MSRVTT-QA, DiDeMo and ANet, 164 for
+// VQA, 169 for TGIF-QA, 174 for pretraining). The products move to the
+// tensor cores: on the fp32 CUDA cores (67 TFLOP/s) the two products alone
+// at B = 512, S = 69 would take ~0.11 ms, above the byte bound.
+//   - One warp per 16 query rows: S is padded to 16 * KT inside the kernel
+//     (S = 69: 80 rows and keys; S = 164: 176); nothing is padded in
+//     memory. The KT query tiles of a (batch item, head) are split over
+//     tc_splits(KT) blocks of at most kTcBlockWarps = 6 warps (S <= 96:
+//     one block; S = 97-176: two blocks of 4-6 warps), blockIdx.x =
+//     (b * H + h) * splits + split, so the blocks that stage the same K and
+//     V are neighbours and the second read comes from L2. Why split: a row's
+//     16 KT scores stay in registers, so at KT = 10-11 a thread holds 80-88
+//     scores and takes 128-168 registers; one block of 11 warps then fits
+//     once on an SM and waits alone on its loads, two blocks of 5-6 warps
+//     fit twice (at KT = 10 three, at 128 registers) and overlap. Blocks of
+//     at most 4 warps (three per (b, h)) stage K and V once more and were
+//     slower (attention_ablations.py, PERF.md).
 //   - K and V of the (b, h) are staged into shared memory as bf16, rows
 //     padded to DH + 8 elements (a pitch of 16 bytes times an odd number,
 //     so each 8-row ldmatrix hits 8 distinct bank groups). Where every row
 //     of q, k and v starts on a 16-byte boundary (the merged-QKV views: row
 //     pitch 2304 or 1152 elements) they are copied with cp.async, K in one
 //     group and V in the next, so V lands while Q K^T and the softmax run;
-//     otherwise element by element. Padded key rows are zero-filled.
+//     otherwise element by element. Padded key rows are zero-filled. The
+//     key bias is staged beside them in fp32, -inf on the padded keys
+//     j >= S (a padded key with a finite score would shift every row), so
+//     the score loop needs no bounds test.
 //   - Q goes straight from device memory into the A fragments (two bf16
 //     per 32-bit load), padded query rows as zeros.
 //   - S = Q K^T on mma.sync m16n8k16 (bf16 in, fp32 accumulate). K's
 //     [key][dim] rows are the column-major B operand as they stand, so its
 //     fragments come through ldmatrix without a transpose. A thread holds
-//     2 * KT n-tiles x 4 scores (40 at S = 69).
-//   - The softmax runs on those registers: scale and key_bias added (two
-//     roundings, as the plain version), padded keys j >= S set to -inf (a
-//     padded key with a finite score would shift every row), row max and
-//     sum over the 4 threads of a quad with __shfl_xor_sync, expf, divide.
-//     The probabilities are rounded to bf16 and the m16n8 accumulator
-//     pairs become the A fragments of the PV product directly: P never
-//     touches shared memory.
+//     2 * KT n-tiles x 4 scores (40 at S = 69, 88 at S = 164-176).
+//   - The exact full-row softmax runs on those registers: scale and bias
+//     added (two roundings, as the plain version), row max and sum over the
+//     4 threads of a quad with __shfl_xor_sync, expf, then p = e * (1 /
+//     sum) (within an fp32 ulp of e / sum; the IEEE division took half the
+//     body's time at S = 164). The normalized probabilities are rounded to
+//     bf16 once and the m16n8 accumulator pairs become the A fragments of
+//     the PV product directly: P never touches shared memory.
 //   - O = P V on mma.sync, V's fragments through ldmatrix.trans; 2 * DK
 //     n-tiles x 4 fp32 accumulators (32 at dh = 64), cast to bf16 and
-//     stored as pairs. Padded query rows are never written.
-//   - Budget at S = 69, dh = 64: 4 * SP * (DH + 8) = 23,040 bytes of
-//     shared memory per block and 88 registers a thread (ptxas), so four
-//     blocks (20 warps) fit on an SM; no instantiation spills
-//     (chip_smoke.py phase 2 checks it).
-//   On an H100 80GB HBM3 at 700 W it takes 0.18 ms at (B, S, H, dh) =
-//   (512, 69, 12, 64), 35% of its byte bound, against 0.32 ms for SDPA and
-//   0.68 ms for body v2 (PERF.md).
+//     stored as pairs. Padded query rows are never written; a warp past
+//     the last tile (the second block of S = 161-176 has 5 live warps of
+//     6) only stages.
+//   - Budget: 64 * KT * (DH + 9) bytes of shared memory per block (23,360
+//     at S = 69, 51,392 at S = 164-176, dh = 64). Registers a thread
+//     (ptxas, dh = 64): 72 at KT = 5, 127-128 at KT = 9-10, 167 at
+//     KT = 11; at most 168 for any dh. So at dh = 64 an SM holds 2 blocks
+//     of 6 warps at S = 161-176, 3 of 5 at S = 129-160. No instantiation
+//     spills (chip_smoke.py phase 2 checks it).
+//   On an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md): 0.101 ms at
+//   (B, S, H, dh) = (512, 69, 12, 64) and 1.46 ms at (8192, 69), 64% and
+//   71% of the byte bound, against SDPA's 0.32 and 4.98; 0.029 ms at
+//   VQA's (32, 164) and 0.169 ms at MSRVTT-QA's (256, 149), 33% and 41%
+//   of the bound, against SDPA's 0.038 and 0.482 and body v2's 0.55 and
+//   3.44.
 //   Why mma.sync and not wgmma here: wgmma takes 64-row M tiles, so S = 69
 //   would pad to 128 rows (85% more product work and registers), and it
-//   wants B in the canonical swizzled shared-memory layout. At ~35 FLOP per
-//   byte the kernel is bound by bytes, and mma.sync's rate is far above
-//   what the bytes allow. wgmma + TMA is for a later change, if the card
-//   shows this body bound by instruction throughput rather than by bytes.
+//   wants B in the canonical swizzled shared-memory layout. At ~35-80 FLOP
+//   per byte the kernel is bound by bytes, and mma.sync's rate is far
+//   above what the bytes allow. wgmma + TMA is for a later change, if the
+//   card shows this body bound by instruction throughput rather than by
+//   bytes.
 //
-// Body "v2" (the first body, unchanged; fp32 operands, S above kTcMaxSeq,
-// dh not a multiple of 16): one block of 8 warps per (batch item, head, tile
-// of query rows); the tile's queries and its score rows sit in shared
-// memory in fp32; K, then V, are staged through a shared buffer in chunks
-// of keys with 16-byte loads where the operands allow. Each warp owns every
-// 8th query row of the tile (R rows, a compile-time count): for the
-// scores, lanes split the keys and each lane keeps R row sums in
-// registers; a warp-shuffle max and sum give the softmax; for PV, lanes
-// split the head dimension (DPL dims each) and keep R x DPL sums in
+// Body "v2" (the first body, unchanged; fp32 operands, S above kTcMaxSeq
+// up to kMaxSeq = 640, dh not a multiple of 16): one block of 8 warps per
+// (batch item, head, tile of query rows); the tile's queries and its score
+// rows sit in shared memory in fp32; K, then V, are staged through a shared
+// buffer in chunks of keys with 16-byte loads where the operands allow.
+// Each warp owns every 8th query row of the tile (R rows, a compile-time
+// count): for the scores, lanes split the keys and each lane keeps R row
+// sums in registers; a warp-shuffle max and sum give the softmax; for PV,
+// lanes split the head dimension (DPL dims each) and keep R x DPL sums in
 // registers. The products run on the fp32 CUDA cores, summed in the order
 // of a sequential FMA chain, which is what the fp32 comparisons need.
 //
@@ -318,7 +340,7 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---- body "tc": both products on mma.sync, the softmax in registers -------
 
-constexpr int kTcMaxSeq = 128;
+constexpr int kTcMaxSeq = 176;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -369,16 +391,16 @@ __device__ __forceinline__ uint32_t load_pair(const uint16_t* p, bool vec) {
 }
 
 // Rows [0, S) of one head into dst [16 KT][DH + 8] as bf16, rows [S, 16 KT)
-// zero. 16 KT rows x DH / 8 chunks of 16 bytes is DK chunks per thread.
-// `vec`: cp.async (the caller commits the group), else element by element.
+// zero: 16 KT rows x DH / 8 chunks of 16 bytes, spread over the block's
+// threads. `vec`: cp.async (the caller commits the group), else element by
+// element.
 template <int KT, int DK>
 __device__ __forceinline__ void stage_tc(uint16_t* dst, const uint16_t* src,
                                          long long row_stride, int S,
                                          bool vec) {
-  constexpr int LD = 16 * DK + 8, CPR = 2 * DK;
-#pragma unroll
-  for (int it = 0; it < DK; ++it) {
-    const int i = threadIdx.x + it * 32 * KT;
+  constexpr int LD = 16 * DK + 8, CPR = 2 * DK, N = 16 * KT * CPR;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const int j = i / CPR, c = (i - j * CPR) * 8;
     uint16_t* d = dst + j * LD + c;
     if (j >= S) {
@@ -394,26 +416,46 @@ __device__ __forceinline__ void stage_tc(uint16_t* dst, const uint16_t* src,
   }
 }
 
-// KT: 16-key tiles (S <= 16 KT, one warp per 16 query rows); DK: dh / 16.
+// Warps of one block: at most kTcBlockWarps. The KT query tiles of a
+// (batch item, head) are split over `splits` = ceil(KT / kTcBlockWarps)
+// blocks of ceil(KT / splits) warps each, and every block stages all of
+// the (b, h)'s K and V (the blocks of one (b, h) are neighbours in the
+// grid, so the second read comes from L2).
+constexpr int kTcBlockWarps = 6;
+
+__host__ __device__ constexpr int tc_splits(int KT) {
+  return (KT + kTcBlockWarps - 1) / kTcBlockWarps;
+}
+__host__ __device__ constexpr int tc_block_threads(int KT) {
+  return 32 * ((KT + tc_splits(KT) - 1) / tc_splits(KT));
+}
+
+// KT: 16-key tiles (S <= 16 KT); DK: dh / 16. One warp per 16 query rows,
+// blockDim.x / 32 warps a block; a warp past the last tile only stages.
 template <int KT, int DK>
-__global__ void __launch_bounds__(32 * KT)
+__global__ void __launch_bounds__(tc_block_threads(KT))
 fused_attention_tc_kernel(const uint16_t* __restrict__ q,
                           const uint16_t* __restrict__ k,
                           const uint16_t* __restrict__ v,
                           const float* __restrict__ key_bias,
                           uint16_t* __restrict__ out, Strides qst,
                           Strides kst, Strides vst, int S, int H,
-                          float scale, bool vec) {
+                          int splits, float scale, bool vec) {
   constexpr int DH = 16 * DK, LD = DH + 8;
   constexpr int NT = 2 * KT;            // 8-key n-tiles of a score row
   constexpr int ON = 2 * DK;            // 8-dim n-tiles of an output row
   extern __shared__ uint4 smem_tc[];
   uint16_t* k_s = reinterpret_cast<uint16_t*>(smem_tc);   // [16 KT][LD]
   uint16_t* v_s = k_s + 16 * KT * LD;                      // [16 KT][LD]
+  float* b_s = reinterpret_cast<float*>(v_s + 16 * KT * LD);  // [16 KT]
 
-  const int h = blockIdx.x % H;
-  const long long b = blockIdx.x / H;
+  const int split = blockIdx.x % splits;
+  const int bh = blockIdx.x / splits;
+  const int h = bh % H;
+  const long long b = bh / H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile = split * (blockDim.x >> 5) + warp;   // 16 query rows
+  const bool live = tile < KT;
   const int g = lane >> 2, t = lane & 3;
   const uint16_t* qb = q + b * qst.b + h * qst.h;
   const uint16_t* kb = k + b * kst.b + h * kst.h;
@@ -424,10 +466,14 @@ fused_attention_tc_kernel(const uint16_t* __restrict__ q,
   cp_async_commit();
   stage_tc<KT, DK>(v_s, vb, vst.s, S, vec);
   cp_async_commit();
+  // the key bias, -inf on the padded keys j >= S (a padded key with a
+  // finite score would shift every row)
+  for (int j = threadIdx.x; j < 16 * KT; j += blockDim.x)
+    b_s[j] = j < S ? bias[j] : -CUDART_INF_F;
 
-  // Q's A fragments: rows r0 = 16 warp + g and r0 + 8, dims 16 ks + 2t (+1)
-  // and 16 ks + 8 + 2t (+1)
-  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  // Q's A fragments: rows r0 = 16 tile + g and r0 + 8, dims 16 ks + 2t
+  // (+1) and 16 ks + 8 + 2t (+1); rows >= S (and a dead warp's) are zero
+  const int r0 = tile * 16 + g, r1 = r0 + 8;
   uint32_t qf[DK][4];
 #pragma unroll
   for (int ks = 0; ks < DK; ++ks) {
@@ -439,82 +485,85 @@ fused_attention_tc_kernel(const uint16_t* __restrict__ q,
   }
 
   cp_async_wait<1>();                   // this thread's K copies landed
-  __syncthreads();                      // everyone's
+  __syncthreads();                      // everyone's, and the bias
 
-  // ---- scores = Q K^T: ldmatrix.x4 gives the B fragments of two n-tiles
-  // (keys 16 np .. +15) at one k-step (dims 16 ks .. +15): lanes 0-7 point
-  // at keys +0..7 dims +0, 8-15 keys +0..7 dims +8, 16-23 keys +8..15
-  // dims +0, 24-31 keys +8..15 dims +8
-  float sc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-  const int k_row = (lane & 7) + ((lane >> 4) << 3);
-  const int k_col = ((lane >> 3) & 1) << 3;
-#pragma unroll
-  for (int ks = 0; ks < DK; ++ks) {
-#pragma unroll
-    for (int np = 0; np < KT; ++np) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, k_s + (np * 16 + k_row) * LD + ks * 16 + k_col);
-      mma_bf16(sc[2 * np], qf[ks], kf[0], kf[1]);
-      mma_bf16(sc[2 * np + 1], qf[ks], kf[2], kf[3]);
-    }
-  }
-
-  // ---- exact full-row softmax on the accumulators: this thread holds
-  // rows r0 (elements 0, 1) and r1 (2, 3) at keys 8 n + 2t (+1) ---------
-  float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = n * 8 + 2 * t + e;
-      const float bj = j < S ? bias[j] : 0.f;
-      sc[n][e] = j < S ? __fadd_rn(__fmul_rn(sc[n][e], scale), bj)
-                       : -CUDART_INF_F;
-      sc[n][e + 2] = j < S ? __fadd_rn(__fmul_rn(sc[n][e + 2], scale), bj)
-                           : -CUDART_INF_F;
-    }
-    mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
-    mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    sc[n][0] = expf(sc[n][0] - mx0);
-    sc[n][1] = expf(sc[n][1] - mx0);
-    sc[n][2] = expf(sc[n][2] - mx1);
-    sc[n][3] = expf(sc[n][3] - mx1);
-    sum0 += sc[n][0] + sc[n][1];
-    sum1 += sc[n][2] + sc[n][3];
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
   // P in bf16, packed as the A fragments of PV: k-step kt takes keys
   // 16 kt .. +15, i.e. n-tiles 2 kt (registers 0, 1) and 2 kt + 1 (2, 3)
   uint32_t pf[KT][4];
+  if (live) {
+    // ---- scores = Q K^T: ldmatrix.x4 gives the B fragments of two n-tiles
+    // (keys 16 np .. +15) at one k-step (dims 16 ks .. +15): lanes 0-7 point
+    // at keys +0..7 dims +0, 8-15 keys +0..7 dims +8, 16-23 keys +8..15
+    // dims +0, 24-31 keys +8..15 dims +8
+    float sc[NT][4];
 #pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    const float* lo = sc[2 * kt];
-    const float* hi = sc[2 * kt + 1];
-    pf[kt][0] = pack_bf16(lo[0] / sum0, lo[1] / sum0);
-    pf[kt][1] = pack_bf16(lo[2] / sum1, lo[3] / sum1);
-    pf[kt][2] = pack_bf16(hi[0] / sum0, hi[1] / sum0);
-    pf[kt][3] = pack_bf16(hi[2] / sum1, hi[3] / sum1);
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    const int k_row = (lane & 7) + ((lane >> 4) << 3);
+    const int k_col = ((lane >> 3) & 1) << 3;
+#pragma unroll
+    for (int ks = 0; ks < DK; ++ks) {
+#pragma unroll
+      for (int np = 0; np < KT; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, k_s + (np * 16 + k_row) * LD + ks * 16 + k_col);
+        mma_bf16(sc[2 * np], qf[ks], kf[0], kf[1]);
+        mma_bf16(sc[2 * np + 1], qf[ks], kf[2], kf[3]);
+      }
+    }
+
+    // ---- exact full-row softmax on the accumulators: this thread holds
+    // rows r0 (elements 0, 1) and r1 (2, 3) at keys 8 n + 2t (+1); scale
+    // and bias added with two roundings, as the plain version
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 bj = *reinterpret_cast<const float2*>(b_s + n * 8 + 2 * t);
+      sc[n][0] = __fadd_rn(__fmul_rn(sc[n][0], scale), bj.x);
+      sc[n][1] = __fadd_rn(__fmul_rn(sc[n][1], scale), bj.y);
+      sc[n][2] = __fadd_rn(__fmul_rn(sc[n][2], scale), bj.x);
+      sc[n][3] = __fadd_rn(__fmul_rn(sc[n][3], scale), bj.y);
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      sc[n][0] = expf(sc[n][0] - mx0);
+      sc[n][1] = expf(sc[n][1] - mx0);
+      sc[n][2] = expf(sc[n][2] - mx1);
+      sc[n][3] = expf(sc[n][3] - mx1);
+      sum0 += sc[n][0] + sc[n][1];
+      sum1 += sc[n][2] + sc[n][3];
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+    }
+    // p = e / sum as e * (1 / sum): within one fp32 ulp of the quotient,
+    // far below the bf16 rounding that follows
+    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      const float* lo = sc[2 * kt];
+      const float* hi = sc[2 * kt + 1];
+      pf[kt][0] = pack_bf16(lo[0] * inv0, lo[1] * inv0);
+      pf[kt][1] = pack_bf16(lo[2] * inv1, lo[3] * inv1);
+      pf[kt][2] = pack_bf16(hi[0] * inv0, hi[1] * inv0);
+      pf[kt][3] = pack_bf16(hi[2] * inv1, hi[3] * inv1);
+    }
   }
 
   cp_async_wait<0>();                   // V landed
   __syncthreads();
+  if (!live) return;                    // no barrier after this point
 
   // ---- out = P V: ldmatrix.x4.trans gives the B fragments of two n-tiles
   // (dims 16 dp .. +15) at one k-step (keys 16 kt .. +15): lanes 0-7 point
@@ -639,35 +688,47 @@ cudaError_t launch_v2(const void* q, const void* k, const void* v,
   }
 }
 
+// The tc plan: (b, h) split over `splits` blocks of `threads` threads
+struct TcPlan {
+  int KT, DK, splits, threads, smem;
+};
+
+TcPlan plan_tc(int S, int dh) {
+  const int KT = (S + 15) / 16;
+  return TcPlan{KT, dh / 16, tc_splits(KT), tc_block_threads(KT),
+                64 * KT * (dh + 9)};
+}
+
 template <int KT, int DK>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const float* key_bias, void* out, int B, int S, int H,
                       Strides qst, Strides kst, Strides vst, float scale,
-                      bool vec, int smem, cudaStream_t stream) {
+                      bool vec, const TcPlan& p, cudaStream_t stream) {
   auto kern = fused_attention_tc_kernel<KT, DK>;
-  if (smem > 48 * 1024) {
+  if (p.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return err;
   }
-  kern<<<(unsigned)((long long)B * H), 32 * KT, smem, stream>>>(
+  kern<<<(unsigned)((long long)B * H * p.splits), p.threads, p.smem,
+         stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), key_bias, static_cast<uint16_t*>(out),
-      qst, kst, vst, S, H, scale, vec);
+      qst, kst, vst, S, H, p.splits, scale, vec);
   return cudaGetLastError();
 }
 
 template <int KT>
-cudaError_t launch_tc_dk(int DK, const void* q, const void* k, const void* v,
+cudaError_t launch_tc_dk(const void* q, const void* k, const void* v,
                          const float* key_bias, void* out, int B, int S,
                          int H, Strides qst, Strides kst, Strides vst,
-                         float scale, bool vec, int smem,
+                         float scale, bool vec, const TcPlan& p,
                          cudaStream_t stream) {
-  switch (DK) {
+  switch (p.DK) {
 #define CLIPBERT_DK(D)                                                      \
   case D:                                                                   \
     return launch_tc<KT, D>(q, k, v, key_bias, out, B, S, H, qst, kst, vst, \
-                            scale, vec, smem, stream);
+                            scale, vec, p, stream);
     CLIPBERT_DK(1)
     CLIPBERT_DK(2)
     CLIPBERT_DK(3)
@@ -682,16 +743,16 @@ cudaError_t launch_tc_dk(int DK, const void* q, const void* k, const void* v,
   }
 }
 
-cudaError_t launch_tc_any(int KT, int DK, const void* q, const void* k,
-                          const void* v, const float* key_bias, void* out,
-                          int B, int S, int H, Strides qst, Strides kst,
-                          Strides vst, float scale, bool vec, int smem,
+cudaError_t launch_tc_any(const void* q, const void* k, const void* v,
+                          const float* key_bias, void* out, int B, int S,
+                          int H, Strides qst, Strides kst, Strides vst,
+                          float scale, bool vec, const TcPlan& p,
                           cudaStream_t stream) {
-  switch (KT) {
+  switch (p.KT) {
 #define CLIPBERT_KT(K)                                                     \
   case K:                                                                  \
-    return launch_tc_dk<K>(DK, q, k, v, key_bias, out, B, S, H, qst, kst,  \
-                           vst, scale, vec, smem, stream);
+    return launch_tc_dk<K>(q, k, v, key_bias, out, B, S, H, qst, kst, vst, \
+                           scale, vec, p, stream);
     CLIPBERT_KT(1)
     CLIPBERT_KT(2)
     CLIPBERT_KT(3)
@@ -700,6 +761,9 @@ cudaError_t launch_tc_any(int KT, int DK, const void* q, const void* k,
     CLIPBERT_KT(6)
     CLIPBERT_KT(7)
     CLIPBERT_KT(8)
+    CLIPBERT_KT(9)
+    CLIPBERT_KT(10)
+    CLIPBERT_KT(11)
 #undef CLIPBERT_KT
     default:
       return cudaErrorInvalidValue;
@@ -713,8 +777,9 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). body: 0 =
-// v2, 1 = tc (bfloat16, dh % 16 == 0, S <= kTcMaxSeq). key_bias is a
-// contiguous (B, S) float32 array, out a contiguous (B, S, H, dh) array.
+// v2, 1 = tc (bfloat16, dh % 16 == 0, S <= kTcMaxSeq; plan_tc). key_bias
+// is a contiguous (B, S) float32 array, out a contiguous (B, S, H, dh)
+// array.
 // blocks, threads, smem and vec are the caller's plan of the launch
 // (ops/fused_attention.py::_plan); it must equal the one derived here.
 // Returns the launch's cudaError_t (0 on success), or kPlanMismatch;
@@ -744,13 +809,13 @@ extern "C" int clipbert_fused_attention(
   if (body == kBodyTc) {
     if (dtype != 1 || dh % 16 != 0 || S > kTcMaxSeq)
       return cudaErrorInvalidValue;
-    const int KT = (S + 15) / 16, DK = dh / 16;
-    if (blocks != (long long)B * H || threads != 32 * KT ||
-        smem != 4 * 16 * KT * (dh + 8))
+    const TcPlan p = plan_tc(S, dh);
+    if (blocks != (long long)B * H * p.splits || threads != p.threads ||
+        smem != p.smem)
       return kPlanMismatch;
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
-    return launch_tc_any(KT, DK, q, k, v, bias, out, B, S, H, qst, kst, vst,
-                         scale, v16, smem, st);
+    return launch_tc_any(q, k, v, bias, out, B, S, H, qst, kst, vst, scale,
+                         v16, p, st);
   }
   if (body != kBodyV2) return cudaErrorInvalidValue;
   V2Plan p;

@@ -9,11 +9,20 @@ unfused form materializes a (B, H, S, S) fp32 score tensor in device
 memory.
 
 The source has two hand-written bodies, and :func:`_plan` chooses one by
-dtype and shape: ``"tc"`` (both products on the tensor cores, the softmax
-in registers) for bf16 with dh a multiple of 16 and S <= ``TC_MAX_SEQ``,
-which is the whole scoring path; ``"v2"`` (the fp32 CUDA-core body) for
-fp32, longer sequences and other head widths. ``TC_LAUNCHES`` counts the
-tensor-core body's launches.
+dtype and shape: ``"tc"`` (both products on the tensor cores, the exact
+softmax in registers) for bf16 with dh a multiple of 16 and S <=
+``TC_MAX_SEQ`` = 176, which is every joint length of the repo's configs
+(69 for retrieval, 149-174 for the QA family and pretraining); ``"v2"``
+(the fp32 CUDA-core body) for fp32, longer sequences and other head
+widths. ``TC_LAUNCHES`` counts the tensor-core body's launches.
+
+The tc body runs one warp per 16 query rows and keeps a row's 16 * tiles
+fp32 scores in registers (88 at S = 161-176): 128-168 registers a thread
+past S = 128. So a (batch item, head)'s query tiles split over blocks of
+at most ``TC_BLOCK_WARPS`` warps (:func:`_tc_split`; two blocks past S =
+96), each with all its K and V as bf16 and its key bias in fp32 in shared
+memory, 64 * tiles * (dh + 9) bytes (51,392 at S = 176, dh = 64): two or
+three blocks share an SM where one block of 11 warps would sit alone.
 
 Routing: a CPU tensor takes :func:`fused_attention_reference`; a CUDA
 tensor launches the kernel or raises. Nothing falls back.
@@ -39,7 +48,8 @@ SHARD_HEADS_LAUNCHES = 0
 
 MAX_SEQ = 640
 MAX_HEAD_DIM = 128
-TC_MAX_SEQ = 128        # csrc/fused_attention.cu kTcMaxSeq: S in registers
+TC_MAX_SEQ = 176        # csrc/fused_attention.cu kTcMaxSeq: S in registers
+TC_BLOCK_WARPS = 6      # csrc/fused_attention.cu kTcBlockWarps
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BODY_CODES = {"v2": 0, "tc": 1}
 _PLAN_MISMATCH = -1     # csrc/fused_attention.cu kPlanMismatch
@@ -73,11 +83,13 @@ def _plan(B: int, S: int, H: int, dh: int, dtype: torch.dtype,
     elif body not in _BODY_CODES or (body == "tc" and not tc_ok):
         raise ValueError(f"no {body!r} body for {dtype} at S={S}, dh={dh}")
     if body == "tc":
-        # one block per (batch item, head), one warp per 16 query rows, K
-        # and V as bf16 rows of dh + 8 elements, padded to 16 * warps keys
-        warps = -(-S // 16)
-        return Plan("tc", B * H, warps, 2 * 16 * warps * (dh + 8) * 2,
-                    aligned)
+        # one warp per 16 query rows; a (batch item, head)'s query tiles
+        # split over blocks of at most TC_BLOCK_WARPS warps, each block
+        # with all its K and V as bf16 rows of dh + 8 elements and the key
+        # bias in fp32, padded to 16 * tiles keys
+        tiles, splits, warps = _tc_split(S)
+        return Plan("tc", B * H * splits, warps,
+                    16 * tiles * (2 * (dh + 8) * 2 + 4), aligned)
     # v2: R query rows per warp (the whole sequence in one tile where its
     # fp32 score rows fit their budget), then the largest key chunk of fp32
     # K/V rows (dh + 4 floats) beside the tile's q and score rows
@@ -95,6 +107,16 @@ def _plan(B: int, S: int, H: int, dh: int, dtype: torch.dtype,
     k_chunk = S if k_chunk >= S else k_chunk & ~3
     return Plan("v2", B * H * -(-S // q_tile), _V2_WARPS,
                 fixed + 4 * k_chunk * ld, aligned)
+
+
+def _tc_split(S: int, block_warps: int = TC_BLOCK_WARPS):
+    """The tc body's (16-row tiles, blocks per (batch item, head), warps
+    per block) at sequence length S: the tiles split as evenly as blocks of
+    at most ``block_warps`` warps allow (csrc/fused_attention.cu tc_splits,
+    tc_block_threads)."""
+    tiles = -(-S // 16)
+    splits = -(-tiles // block_warps)
+    return tiles, splits, -(-tiles // splits)
 
 
 def _aligned16(*ts: torch.Tensor) -> bool:

@@ -3,18 +3,21 @@ fused_attention.py::_plan) and its binding, on the CPU.
 
 The kernel itself (csrc/fused_attention.cu) builds and runs only on the
 card, where ``python3 chip_smoke.py`` holds both of its bodies against the
-plain version. Here: which body the plan picks for each shape and dtype,
-the plan's grid, warps and shared-memory bytes against the formulas of the
-source note, that the constants and the C signature the wrapper relies on
-are the source's, that a CPU tensor still takes the plain version with no
-counter moved, and that the plain version matches the Pallas kernel (in
-interpret mode) when S is not a multiple of the tensor-core body's 16-row
-tiles and the last keys are masked.
+plain version. Here: which body the plan picks for each shape and dtype
+(the tensor-core body at every joint length the configs and the QA
+family's shapes give), the plan's grid, warps and shared-memory bytes
+against the formulas of the source note, that the constants and the C
+signature the wrapper relies on are the source's, that a CPU tensor still
+takes the plain version with no counter moved, and that the plain version
+matches the Pallas kernel (in interpret mode) when S is not a multiple of
+the tensor-core body's 16-row tiles and the last keys are masked, up to
+the QA family's S = 149-174.
 
 Tolerance: rtol = atol = 1e-5 in fp32, as tests/test_pallas_kernels.py:112
 holds the Pallas kernel to the einsum path."""
 
 import ctypes
+import json
 import re
 from pathlib import Path
 
@@ -24,15 +27,18 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
 from clipbert_tpu.ops.pallas_attention import fused_attention as j_fused
 from clipbert_tpu_torch.ops import fused_attention as fa
 
 SRC = (Path(fa.__file__).resolve().parents[1] / "csrc"
        / "fused_attention.cu").read_text()
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 BF16, FP32 = torch.bfloat16, torch.float32
 
 # (B, S, H, dh) of the main path: serving at 1 and 16 clips x 32 captions,
-# the eval dispatch, one rank's head shard under a 2-way model axis
+# the eval dispatch, one rank's head shard under a 2-way model axis; the
+# QA family's shapes (chip_smoke.QA_ATTN_SHAPES) join them in the test
 MAIN_PATH = [(32, 69, 12, 64), (512, 69, 12, 64), (8192, 69, 12, 64),
              (128, 69, 6, 64)]
 
@@ -50,7 +56,8 @@ def _merged_qkv_views(B, S, H, dh, dtype):
     return tuple(t.view(B, S, H, dh) for t in qkv.split(H * dh, dim=-1))
 
 
-@pytest.mark.parametrize("B,S,H,dh", MAIN_PATH)
+@pytest.mark.parametrize("B,S,H,dh", MAIN_PATH + [
+    shape[:4] for shape in chip_smoke.QA_ATTN_SHAPES])
 def test_plan_runs_the_main_path_on_the_tensor_core_body(B, S, H, dh):
     q, k, v = _merged_qkv_views(B, S, H, dh, BF16)
     assert q.stride(1) == 3 * H * dh            # 2304, or 1152 for a shard
@@ -62,7 +69,7 @@ def test_plan_runs_the_main_path_on_the_tensor_core_body(B, S, H, dh):
 @pytest.mark.parametrize("B,S,H,dh,dtype,why", [
     (512, 69, 12, 64, FP32, "fp32 needs exact fp32 products"),
     (2, 620, 12, 64, BF16, "longest sequence"),
-    (3, 129, 2, 64, BF16, "just past the register-resident limit"),
+    (3, 177, 2, 64, BF16, "just past the register-resident limit"),
     (3, 11, 4, 8, BF16, "dh 8, the ragged shapes"),
     (2, 69, 2, 72, BF16, "dh not a multiple of 16"),
 ])
@@ -70,19 +77,49 @@ def test_plan_keeps_v2(B, S, H, dh, dtype, why):
     assert fa._plan(B, S, H, dh, dtype, True).body == "v2", why
 
 
-@pytest.mark.parametrize("S,dh", [(1, 16), (16, 32), (17, 48), (69, 64),
-                                  (100, 96), (128, 128)])
-def test_tc_plan_matches_the_source_formulas(S, dh):
-    """One block per (batch item, head); one warp per 16 query rows; K and
-    V as bf16 rows of dh + 8 elements for 16 * warps keys:
-    4 * SP * (DH + 8) bytes."""
+@pytest.mark.parametrize("S,dh,splits,warps", [
+    (1, 16, 1, 1), (16, 32, 1, 1), (17, 48, 1, 2), (69, 64, 1, 5),
+    (100, 96, 2, 4), (128, 128, 2, 4), (129, 64, 2, 5), (149, 64, 2, 5),
+    (164, 64, 2, 6), (169, 64, 2, 6), (174, 64, 2, 6), (176, 128, 2, 6)])
+def test_tc_plan_matches_the_source_formulas(S, dh, splits, warps):
+    """One warp per 16 query rows; a (batch item, head)'s KT = ceil(S / 16)
+    query tiles split over ceil(KT / kTcBlockWarps) blocks of as few warps
+    as hold them; each block holds K and V as bf16 rows of dh + 8 elements
+    and the key bias in fp32, for 16 KT keys: 16 KT * (4 (dh + 8) + 4) =
+    64 KT (dh + 9) bytes."""
     B, H = 3, 5
     plan = fa._plan(B, S, H, dh, BF16, False)
     kt = (S + 15) // 16
-    assert plan == fa.Plan("tc", B * H, kt, 4 * 16 * kt * (dh + 8), False)
+    assert splits * warps >= kt > (splits - 1) * warps
+    assert plan == fa.Plan("tc", B * H * splits, warps,
+                           64 * kt * (dh + 9), False)
     assert plan.smem_bytes <= 227 * 1024
-    # the C launcher derives the same bytes before it launches
-    assert re.search(r"smem != 4 \* 16 \* KT \* \(dh \+ 8\)", SRC)
+    # the C launcher derives the same plan before it launches
+    body = re.search(r"TcPlan plan_tc\(int S, int dh\) \{(.*?)\n\}", SRC,
+                     re.S).group(1)
+    assert "const int KT = (S + 15) / 16;" in body
+    assert ("return TcPlan{KT, dh / 16, tc_splits(KT), tc_block_threads(KT),"
+            "\n                64 * KT * (dh + 9)};" in body)
+    assert ("return (KT + kTcBlockWarps - 1) / kTcBlockWarps;" in SRC)
+    assert "return 32 * ((KT + tc_splits(KT) - 1) / tc_splits(KT));" in SRC
+    assert re.search(r"blocks != \(long long\)B \* H \* p\.splits \|\| "
+                     r"threads != p\.threads \|\|\s+smem != p\.smem", SRC)
+
+
+@pytest.mark.parametrize("config", sorted(
+    p.name for p in CONFIGS.glob("*.json")
+    if "max_txt_len" in json.loads(p.read_text())))
+def test_every_config_joint_length_runs_the_tensor_core_body(config):
+    """S = max_txt_len + (max_img_size // 64)^2 grid tokens, at the head
+    width of the config's model (768 / 12 = 64): the longest is
+    pretraining's 30 + 144 = 174."""
+    run = json.loads((CONFIGS / config).read_text())
+    model = json.loads((CONFIGS.parent / run["model_config"]).read_text())
+    S = run["max_txt_len"] + (run["max_img_size"] // 64) ** 2
+    dh = model["hidden_size"] // model["num_attention_heads"]
+    assert S <= fa.TC_MAX_SEQ
+    assert fa._plan(2, S, model["num_attention_heads"], dh, BF16,
+                    True).body == "tc"
 
 
 @pytest.mark.parametrize("S,dh,rows,smem", [
@@ -99,7 +136,11 @@ def test_v2_plan_matches_the_source_formulas(S, dh, rows, smem):
 
 
 def test_plan_constants_are_the_sources():
-    assert fa.TC_MAX_SEQ == _cu_int("kTcMaxSeq") == 128
+    assert fa.TC_MAX_SEQ == _cu_int("kTcMaxSeq") == 176
+    assert fa.TC_BLOCK_WARPS == _cu_int("kTcBlockWarps")
+    # one instantiation per 16-key tile count up to the limit
+    tiles = re.findall(r"CLIPBERT_KT\((\d+)\)\n", SRC)
+    assert [int(t) for t in tiles] == list(range(1, fa.TC_MAX_SEQ // 16 + 1))
     assert fa._PLAN_MISMATCH == _cu_int("kPlanMismatch")
     assert fa._BODY_CODES == {"v2": _cu_int("kBodyV2"),
                               "tc": _cu_int("kBodyTc")}
@@ -131,7 +172,7 @@ def test_forced_body(body, dtype, S, dh):
 
 
 @pytest.mark.parametrize("body,dtype,S,dh", [
-    ("tc", FP32, 69, 64), ("tc", BF16, 129, 64), ("tc", BF16, 11, 8),
+    ("tc", FP32, 69, 64), ("tc", BF16, 177, 64), ("tc", BF16, 11, 8),
     ("wgmma", BF16, 69, 64)])
 def test_forced_body_the_kernel_does_not_have(body, dtype, S, dh):
     with pytest.raises(ValueError):
@@ -172,7 +213,8 @@ def test_cpu_tensors_take_the_plain_version(rng_np, B, S, H, dh, dtype):
 
 
 @pytest.mark.parametrize("B,S,n_masked", [(3, 21, 5), (2, 69, 20),
-                                          (9, 5, 1)])
+                                          (9, 5, 1), (2, 149, 80),
+                                          (2, 169, 19), (1, 174, 24)])
 def test_reference_matches_pallas_with_masked_tail_keys(rng_np, B, S,
                                                         n_masked):
     """S off the 16-row tiles (the tensor-core body pads it inside the

@@ -30,8 +30,22 @@ def test_trainer_losses_equal_jax(world, tmp_path, loss_logs):
     check_trainer_against_jax(world, "frameqa", tmp_path, loss_logs)
 
 
+@pytest.fixture(scope="module")
+def fresh_vqa(world, tmp_path_factory):
+    """The VQA run's seeded init with no warm start (flattened), made once
+    for both handoff cases: what the classifier must keep."""
+    path = _run_json(world, "vqa", tmp_path_factory.mktemp("fresh") / "out",
+                     e2e_weights_path="", num_train_epochs=1)
+    cfg = load_run_config(["--config", path])
+    mcfg = ModelConfig.from_json(cfg.model_config).replace(
+        num_labels=len(ANSWERS), loss_type="bce")
+    return to_jax_flat(model_state(trainer.setup_model(cfg, mcfg, "seq_cls",
+                                                       "cpu")))
+
+
 @pytest.mark.parametrize("source", ["port", "jax"])
-def test_pretrain_to_finetune_handoff(world, source, tmp_path, loss_logs):
+def test_pretrain_to_finetune_handoff(world, source, tmp_path, loss_logs,
+                                      fresh_vqa):
     """A pretraining deploy checkpoint (written by the port's ModelSaver
     from a port pretrain model, or by the JAX package's from a JAX tree)
     as the VQA run's e2e_weights_path: the trunk (CNN and BERT) loads
@@ -60,9 +74,7 @@ def test_pretrain_to_finetune_handoff(world, source, tmp_path, loss_logs):
         num_labels=len(ANSWERS), loss_type="bce")
     got = to_jax_flat(model_state(trainer.setup_model(cfg, mcfg, "seq_cls",
                                                       "cpu")))
-    fresh = to_jax_flat(model_state(trainer.setup_model(
-        load_run_config(["--config", path, "--e2e_weights_path", ""]), mcfg,
-        "seq_cls", "cpu")))
+    fresh = fresh_vqa
     trunk = [k for k in got if k.startswith(("cnn/", "transformer/bert/"))]
     assert len(trunk) > 100
     for k in trunk:

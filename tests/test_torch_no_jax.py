@@ -1,8 +1,9 @@
 """The port never imports jax (nor clipbert_tpu, whose __init__ imports
-jax): every module of clipbert_tpu_torch, and chip_smoke.py, imports with
-both blocked. On tensors that lie on the CPU each kernel wrapper takes its
-plain version without counting a kernel launch. Checked in a fresh
-interpreter: this test process has imported jax already (conftest.py)."""
+jax): every module of clipbert_tpu_torch, chip_smoke.py and
+attention_ablations.py import with both blocked. On tensors that lie on
+the CPU each kernel wrapper takes its plain version without counting a
+kernel launch. Checked in a fresh interpreter: this test process has
+imported jax already (conftest.py)."""
 
 import os
 import subprocess
@@ -22,6 +23,7 @@ for name in names:
 for name in NEW_MODULES:
     assert name in names, name
 import chip_smoke
+import attention_ablations
 bad = [n for n, m in sys.modules.items() if m is not None and (
        n == "jax" or n.startswith("jax.") or n == "clipbert_tpu"
        or n.startswith("clipbert_tpu."))]

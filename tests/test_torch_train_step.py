@@ -158,10 +158,42 @@ def world():
     return params, batch
 
 
-def test_train_step_matches_jax(world):
+def _raising_wrappers(mp, called):
+    """The kernel wrappers patched to record and raise, and
+    kernels_default to True (as on a CUDA device)."""
+    def wrapper(name):
+        def fn(*a, **k):
+            called.append(name)
+            raise RuntimeError(f"{name} called")
+        return fn
+
+    for mod, name in ((resnet, "fused_stem_pool"),
+                      (resnet, "conv1x1_bn_act"),
+                      (attention, "fused_attention"),
+                      (attention, "fused_attention_shard_heads")):
+        mp.setattr(mod, name, wrapper(name))
+    mp.setattr(resnet, "kernels_default", lambda d: True)
+    mp.setattr(steps, "kernels_default", lambda d: True)
+
+
+@pytest.fixture(scope="module")
+def lse_step(world):
+    """The port's accum-1 LSE update, made once for the module with the
+    kernel wrappers raising (_raising_wrappers): the JAX parity test
+    compares it, the plain-forms test reads the wrapper calls it made.
+    Returns ((metrics, model, state), wrapper calls)."""
     params, batch = world
-    check_against_jax(jax_step(params, batch, "lse", 1),
-                      port_step(params, batch, "lse", 1), params)
+    called = []
+    with pytest.MonkeyPatch.context() as mp:
+        _raising_wrappers(mp, called)
+        out = port_step(params, batch, "lse", 1)
+    return out, called
+
+
+def test_train_step_matches_jax(world, lse_step):
+    params, batch = world
+    check_against_jax(jax_step(params, batch, "lse", 1), lse_step[0],
+                      params)
 
 
 @pytest.fixture(scope="module")
@@ -197,27 +229,13 @@ def test_kernel_guard_refuses_autograd():
     ops.refuse_autograd("fused_stem_pool", torch.ones(2), None)
 
 
-def test_train_step_takes_the_plain_forms_where_kernels_run(world,
-                                                           monkeypatch):
+def test_train_step_takes_the_plain_forms_where_kernels_run(
+        world, lse_step, monkeypatch):
     """With kernels_default patched to True (as on a CUDA device), the
     eval forward reaches the kernel wrappers, and the train step reaches
     none of them: it passes use_kernels=False and fused_attn=False."""
     params, batch = world
-    called = []
-
-    def wrapper(name):
-        def fn(*a, **k):
-            called.append(name)
-            raise RuntimeError(f"{name} called")
-        return fn
-
-    for mod, name in ((resnet, "fused_stem_pool"),
-                      (resnet, "conv1x1_bn_act"),
-                      (attention, "fused_attention"),
-                      (attention, "fused_attention_shard_heads")):
-        monkeypatch.setattr(mod, name, wrapper(name))
-    monkeypatch.setattr(resnet, "kernels_default", lambda d: True)
-    monkeypatch.setattr(steps, "kernels_default", lambda d: True)
+    _raising_wrappers(monkeypatch, [])
     cfg = ModelConfig(**MODEL_KW)
     _, ts = settings("lse")
     model = load_jax_params(clipbert.empty_clipbert(cfg, device="cpu"),
@@ -228,6 +246,5 @@ def test_train_step_takes_the_plain_forms_where_kernels_run(world,
     step = steps.make_eval_step(cfg, ts, torch.float32, use_kernels=False)
     with pytest.raises(RuntimeError, match="fused_attention called"):
         step(model, tb)
-    called.clear()
-    m, _, _ = port_step(params, batch, "lse", 1)
+    (m, _, _), called = lse_step
     assert called == [] and np.isfinite(float(m["loss"]))
