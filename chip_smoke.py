@@ -43,14 +43,18 @@ Phases; any failure raises and the script exits non-zero:
  6. the serving slice at full width: RetrievalScorer on configs/
     base_model.json with random weights from a seeded generator, at 1 and
     16 clips, requests of 1, 5 and 32 captions on seeded uint8 240x320
-    frames. Counts from 0: every scoring call must launch attention once
-    per encoder layer, on the tensor-core body, every encode 36 fused 1x1
-    convs, all on the wgmma body, and one fused stem, on its tensor-core
-    body. Then the CNN's kernel form and cuDNN form in turns; their grid
-    features on the same frames must agree within FEAT_REL, as must the
-    kernel form's with matmul_bn_act's two bodies and with the stem's two
-    bodies, and the kernel form with a planted wiring fault must not. Then
-    one request through the plain attention path.
+    frames, each a replay of the scorer's CUDA graphs (the comparisons
+    that force a body or plant a fault, here and in phases 12-15 and 19,
+    run scorers built with cuda_graphs=False on the same model: a replay
+    calls no Python). Counts from 0: every scoring call must launch
+    attention once per encoder layer, on the tensor-core body, every
+    encode 36 fused 1x1 convs, all on the wgmma body, and one fused stem,
+    on its tensor-core body. Then the CNN's kernel form and cuDNN form in
+    turns; their grid features on the same frames must agree within
+    FEAT_REL, as must the kernel form's with matmul_bn_act's two bodies
+    and with the stem's two bodies, and the kernel form with a planted
+    wiring fault must not. Then one request through the plain attention
+    path.
  7. the eval path at full width: tasks.run_video_retrieval.
     inference_retrieval with the configs/msrvtt_ret_base_resnet50.json
     settings (16 clips x 2 frames at 448^2, text length 20, bf16, folded
@@ -136,6 +140,7 @@ Phases; any failure raises and the script exits non-zero:
     ranks as ``train18_launches`` and its worst error as
     ``train18_max_abs_err``; phase 19's int8 requests' launches as
     ``int8_launches`` and verify_ckpt's as ``verify_ckpt_launches``;
+    phase 20's replayed requests' as ``graph_launches``;
     fused_attention_shard_heads's record reads its own count in each:
     ``train18_launches`` over 18a's steps and 18b's ranks),
     then {"ok": true, "device": {...}}.
@@ -229,6 +234,27 @@ fails or outlives its phase's timeout fails the script.
     tc attention launches a caption minibatch, 36 wg + 1 tc stem an
     encode.
 
+20. (after phase 19) one CUDA graph per bucket in the three scorers
+    (utils/cuda_graphs.py), at full width: RetrievalScorer at 1 and 16
+    clips, VQAScorer at 768 px, VideoQAScorer on MSRVTT-QA (8 clips x 2
+    frames, text 100) and TGIF action's multiple choice, each in bf16 and
+    int8 beside its eager twin (cuda_graphs=False, the same model).
+    20a-b: the warmup captures one encode graph and one graph per text
+    bucket (4-32; the 5 options); every warmed bucket's request replays
+    them, counting 12 tc attention, 36 wg 1x1 and one tc stem launch and
+    no capture, and equals the eager request bit for bit (the features
+    and the probabilities). 20c: request p50 / p90 by host clock, graphs
+    against eager in turns (GRAPH_SAMPLES each): retrieval at 1 and 16
+    clips x 1, 5 and 32 captions, VQA at 1, 5 and 32 questions,
+    MSRVTT-QA at 32, the MC call. 20d: each scorer's memory: what the
+    warmup reserved, the graph pool's segments of it, and the eager
+    request's peak at the largest bucket. 20e: bench_serving.
+    sustained_load on the 1-clip retrieval scorer: SUSTAINED_CLIENTS HTTP
+    clients for SUSTAINED_S seconds, each its own captions; no error,
+    every response equal to its client's serial result, no capture. 20f:
+    a request at an unwarmed resolution bucket captures once, the next
+    replays, both bit-equal to the eager encode.
+
 Imports nothing of JAX. Needs one card, nvcc and a few minutes.
 """
 
@@ -249,6 +275,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from clipbert_tpu_torch import bench_serving
 from clipbert_tpu_torch.ckpt import checkpoint
 from clipbert_tpu_torch.core.config import (ModelConfig, inject_task_attrs,
                                             load_run_config)
@@ -269,11 +296,13 @@ from clipbert_tpu_torch.ops import matmul_bn_act as mba
 from clipbert_tpu_torch.ops.linear import mm_f32
 from clipbert_tpu_torch.parallel import shard_model
 from clipbert_tpu_torch.serve import (RetrievalScorer, VideoQAScorer,
-                                      VQAScorer, _pow2_bucket)
+                                      VQAScorer, _pad_texts, _pow2_bucket,
+                                      _text_buckets)
 from clipbert_tpu_torch.tasks import (common, run_msrvtt_mc, run_video_qa,
                                       run_vqa)
 from clipbert_tpu_torch.tasks.run_video_retrieval import inference_retrieval
 from clipbert_tpu_torch.train import steps
+from clipbert_tpu_torch.utils import cuda_graphs
 from clipbert_tpu_torch.utils.distributed import spawn_ranks
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1115,6 +1144,12 @@ def phase_slice(model, cfg, tok):
                                            use_kernels=form == "kernels",
                                            **common)
                for nc in (1, 16) for form in ("kernels", "cudnn")}
+    # the same scorers run eagerly: a forced body or a planted fault
+    # changes what the Python wrappers launch, which a replay would not see
+    eager = {k: RetrievalScorer(model, cfg, tok, n_clips=k[0],
+                                use_kernels=k[1] == "kernels",
+                                cuda_graphs=False, **common)
+             for k in scorers}
     frames = {nc: rng.integers(0, 256, (nc * 2, 240, 320, 3), np.uint8)
               for nc in (1, 16)}
     for (nc, form), sc in scorers.items():
@@ -1200,9 +1235,9 @@ def phase_slice(model, cfg, tok):
                                  f"{err} > {PROB_ATOL}")
         _check_cnn_forms(
             f"serving, {nc} clip(s)", model,
-            lambda f: scorers[(nc, f)].encode_frames(frames[nc]),
-            lambda feats: scorers[(nc, "kernels")].score(None, caps[:5],
-                                                         features=feats))
+            lambda f: eager[(nc, f)].encode_frames(frames[nc]),
+            lambda feats: eager[(nc, "kernels")].score(None, caps[:5],
+                                                       features=feats))
 
     # ---- the same request through the plain attention path (a test call)
     ts = steps.TaskSettings(head_type="retrieval", loss_type="ce",
@@ -1213,7 +1248,8 @@ def phase_slice(model, cfg, tok):
         sc = scorers[(nc, "kernels")]
         feats = sc.encode_frames(frames[nc])
         n = 5
-        ids, mask = sc._pad_texts(caps[:n], _pow2_bucket(n, 32))
+        ids, mask = (torch.from_numpy(a).cuda() for a in _pad_texts(
+            tok, caps[:n], sc.max_txt_len, _pow2_bucket(n, 32)))
         plain = plain_step(sc.model, feats, ids, mask)[0, :n].cpu().numpy()
         kern = sc.score(None, caps[:n], features=feats)
         err = float(np.abs(plain - kern).max())
@@ -1879,7 +1915,7 @@ def phase_bodies(model, cfg, tok, run_cfg, path, rows, single):
         sc = RetrievalScorer(model, cfg, tok, n_clips=nc, device="cuda",
                              compute_dtype=torch.bfloat16, num_frm=2,
                              max_img_size=448, max_txt_len=20,
-                             max_captions=32)
+                             max_captions=32, cuda_graphs=False)
         feats = sc.encode_frames(rng.integers(0, 256, (nc * 2, 240, 320, 3),
                                               np.uint8))
         ms, windows = _windows_in_turns(
@@ -1902,7 +1938,8 @@ def phase_cnn_bodies(model, cfg, tok, run_cfg, path, rows, single):
     rng = np.random.default_rng(13)
     sc = RetrievalScorer(model, cfg, tok, n_clips=16, device="cuda",
                          compute_dtype=torch.bfloat16, num_frm=2,
-                         max_img_size=448, max_txt_len=20, max_captions=32)
+                         max_img_size=448, max_txt_len=20, max_captions=32,
+                         cuda_graphs=False)
     frames = rng.integers(0, 256, (32, 240, 320, 3), np.uint8)
     ms, windows = _windows_in_turns(lambda: sc.encode_frames(frames),
                                     _mba_body, ("wg", "mma"))
@@ -1928,7 +1965,7 @@ def phase_stem_bodies(model, cfg, tok):
         sc = RetrievalScorer(model, cfg, tok, n_clips=nc, device="cuda",
                              compute_dtype=torch.bfloat16, num_frm=2,
                              max_img_size=448, max_txt_len=20,
-                             max_captions=32)
+                             max_captions=32, cuda_graphs=False)
         frames = rng.integers(0, 256, (2 * nc, 240, 320, 3), np.uint8)
         feats = {}
         for body in ("tc", "direct"):
@@ -2119,11 +2156,15 @@ def phase_qa_scorers(models, tok):
     for what, key, task, kw in QA_SCORERS:
         model, mcfg = models[key]
         S = _seq_len(kw["max_txt_len"], kw["max_img_size"])
+        # the main path replays graphs; the forms' comparisons run eagerly
+        # ("cudnn", and "kernels" again as "eager": a forced body or a
+        # planted fault changes what the Python wrappers launch)
         forms = {}
-        for form in ("kernels", "cudnn"):
+        for form in ("kernels", "cudnn", "eager"):
             fk = dict(device="cuda", compute_dtype=torch.bfloat16,
-                      use_kernels=form == "kernels",
-                      fused_attn=None if form == "kernels" else False)
+                      use_kernels=form != "cudnn",
+                      fused_attn=None if form != "cudnn" else False,
+                      cuda_graphs=None if form == "kernels" else False)
             if task == "vqa":
                 forms[form] = VQAScorer(
                     model, mcfg, tok, {i: f"ans{i}" for i in
@@ -2140,11 +2181,13 @@ def phase_qa_scorers(models, tok):
             frames = rng.integers(0, 256, (kw["n_clips"] * kw["num_frm"],
                                            240, 320, 3), np.uint8)
         t0 = time.perf_counter()
-        for sc in forms.values():
-            sc.warmup(((480, 640),) if task == "vqa" else ((240, 320),))
+        for form in ("kernels", "cudnn"):
+            forms[form].warmup(((480, 640),) if task == "vqa"
+                               else ((240, 320),))
         torch.cuda.synchronize()
         print(f"{what}: warmup of both forms {time.perf_counter() - t0:.2f}"
-              " s")
+              f" s (the kernel form's {len(forms['kernels']._graphs)} CUDA "
+              "graphs captured)")
         sizes = (5,) if task == "action" else REQUEST_SIZES
 
         # ---- the main path: counts from 0, read right after ----------
@@ -2179,7 +2222,7 @@ def phase_qa_scorers(models, tok):
         # ---- the 32-question request, attention on tc against v2 ---------
         if task in ("vqa", "msrvtt_qa"):
             ms, windows = _windows_in_turns(
-                lambda: _qa_request(forms["kernels"], task, frames, qs, 32),
+                lambda: _qa_request(forms["eager"], task, frames, qs, 32),
                 _attention_body, ("tc", "v2"))
             print(f"{what} attention bodies end to end, 32-question request "
                   f"(encode + scoring, {8 * REPEATS} requests each, in "
@@ -2187,8 +2230,8 @@ def phase_qa_scorers(models, tok):
                   f"{np.median(ms['v2']):.2f} ms; window p50s {windows}")
 
         # ---- the kernel form against the cuDNN + einsum form -------------
-        probs = {f: _qa_request(sc, task, frames, qs, 5)[2]
-                 for f, sc in forms.items()}
+        probs = {f: _qa_request(forms[f], task, frames, qs, 5)[2]
+                 for f in ("kernels", "cudnn")}
         err = float(np.abs(probs["kernels"] - probs["cudnn"]).max())
         print(f"{what}, 5 questions: probabilities, kernel form vs cuDNN + "
               f"einsum form: max_abs_diff {err:.3e} (PROB_ATOL {PROB_ATOL})")
@@ -2197,10 +2240,11 @@ def phase_qa_scorers(models, tok):
                                  f"by {err} > {PROB_ATOL}")
 
         def encode(form, sc=forms, task=task, frames=frames):
-            return (sc[form].encode_image(frames) if task == "vqa"
-                    else sc[form].encode_frames(frames))
+            sc = sc["eager" if form == "kernels" else form]
+            return (sc.encode_image(frames) if task == "vqa"
+                    else sc.encode_frames(frames))
 
-        def score(feats, sc=forms["kernels"], task=task):
+        def score(feats, sc=forms["eager"], task=task):
             if task == "action":
                 return sc.answer_mc(None, qs[0], qs[1:6], features=feats)
             return sc.probs(None, qs[:5], features=feats)
@@ -4048,15 +4092,18 @@ def phase_int8(model, cfg, tok):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    cases = []
+    cases, eager = [], {}
     for nc in (1, 16):
         sc = {"bf16": RetrievalScorer(model, cfg, tok, n_clips=nc, **common),
               "int8": RetrievalScorer(qmodel, cfg, tok, n_clips=nc,
                                       quantize=True, **common)}
         frames = rng.integers(0, 256, (nc * 2, 240, 320, 3), np.uint8)
-        cases.append((f"retrieval, {nc} clip(s) x 2 frames at 448 px",
-                      sc, lambda s, n, fr=frames: s.score(
-                          None, caps[:n], features=s.encode_frames(fr))))
+        what = f"retrieval, {nc} clip(s) x 2 frames at 448 px"
+        eager[what] = RetrievalScorer(qmodel, cfg, tok, n_clips=nc,
+                                      quantize=True, cuda_graphs=False,
+                                      **common)
+        cases.append((what, sc, lambda s, n, fr=frames: s.score(
+            None, caps[:n], features=s.encode_frames(fr))))
     fp32_b, bf16_b, int8_b = _quant_bytes(model, qmodel)
     vcfg = cfg.replace(num_labels=QA_VQA_LABELS, loss_type="bce")
     vqa = {}
@@ -4070,9 +4117,14 @@ def phase_int8(model, cfg, tok):
                               max_img_size=768, max_txt_len=20,
                               max_questions=32, quantize=form == "int8")
     img = _jpeg(rng, 480, 640)
-    cases.append(("VQA, one 480x640 image at 768 px, 3129 answers", vqa,
-                  lambda s, n: s.probs(None, caps[:n],
-                                       features=s.encode_image(img))))
+    what = "VQA, one 480x640 image at 768 px, 3129 answers"
+    eager[what] = VQAScorer(vqa["int8"].model, vcfg, tok,
+                            vqa["int8"].label2ans, device="cuda",
+                            compute_dtype=torch.bfloat16, max_img_size=768,
+                            max_txt_len=20, max_questions=32, quantize=True,
+                            cuda_graphs=False)
+    cases.append((what, vqa, lambda s, n: s.probs(
+        None, caps[:n], features=s.encode_image(img))))
     for what, sc, request in cases:
         for s in sc.values():
             if isinstance(s, VQAScorer):
@@ -4080,25 +4132,29 @@ def phase_int8(model, cfg, tok):
             else:
                 s.warmup(((240, 320),))
         torch.cuda.synchronize()
+        # ---- the main path: counts from 0, read right after ----
+        _reset_counts()
+        for n in REQUEST_SIZES:
+            before = _counts()
+            request(sc["int8"], n)
+            dl = [a - b for a, b in zip(_counts(), before)]
+            _expect(f"19 {what}, int8, attention", dl[0],
+                    cfg.num_hidden_layers)
+            _expect(f"19 {what}, int8, matmul_bn_act on wg", dl[4],
+                    MBA_PER_ENCODE)
+            _expect(f"19 {what}, int8, fused_stem_pool on tc", dl[5], 1)
+            _expect(f"19 {what}, int8, attention on tc", dl[3], dl[0])
+        counts, shard = _counts(), fa.SHARD_HEADS_LAUNCHES
+        # the int8 products as the int8 scorer's requests make them, taken
+        # from the same scorer run eagerly (a replay calls no Python)
         calls = {}
         real, rec = _int_mm_recorder(calls)
         lin.int_mm = rec
-        # ---- the main path: counts from 0, read right after ----
-        _reset_counts()
         try:
             for n in REQUEST_SIZES:
-                before = _counts()
-                request(sc["int8"], n)
-                dl = [a - b for a, b in zip(_counts(), before)]
-                _expect(f"19 {what}, int8, attention", dl[0],
-                        cfg.num_hidden_layers)
-                _expect(f"19 {what}, int8, matmul_bn_act on wg", dl[4],
-                        MBA_PER_ENCODE)
-                _expect(f"19 {what}, int8, fused_stem_pool on tc", dl[5], 1)
-                _expect(f"19 {what}, int8, attention on tc", dl[3], dl[0])
+                request(eager[what], n)
         finally:
             lin.int_mm = real
-        counts, shard = _counts(), fa.SHARD_HEADS_LAUNCHES
         _expect(f"19 {what}, int8, fused_attention_shard_heads", shard, 0)
         total = [a + b for a, b in zip(total, counts[:3])]
         shard_total += shard
@@ -4119,7 +4175,7 @@ def phase_int8(model, cfg, tok):
           f"scorer ({bf16_b / 2**20:.1f} MiB as bf16), {int8_b / 2**20:.1f} "
           f"MiB int8 weights + fp32 scales and biases; phase 19a-b "
           f"{time.perf_counter() - t19:.1f} s")
-    del cases, vqa, qmodel
+    del cases, vqa, qmodel, eager
     torch.cuda.empty_cache()
     return total, shard_total
 
@@ -4184,6 +4240,284 @@ def phase_verify_ckpt(cfg, run_cfg, tok, d, path, rows, matrix):
     return launches[:3], shard
 
 
+# ---------------------------------------------------------------------------
+# phase 20: one CUDA graph per bucket in the three scorers
+# ---------------------------------------------------------------------------
+
+GRAPH_SAMPLES = 40        # timed requests per variant and size, in turns
+SUSTAINED_S = 10.0        # 20e: seconds of concurrent HTTP load
+SUSTAINED_CLIENTS = 8
+UNWARMED_HW = (480, 640)  # 20f: the (512, 640) bucket no warmup listed
+
+
+def _graph_cases(model, cfg, qa_models, tok, rng):
+    """Phase 20's scorers at full width, as (name, build(model, quantize,
+    cuda_graphs) -> scorer, model, request(scorer, n) -> (features,
+    probabilities), the warmed text buckets, the timed text counts, the
+    warmup (h, w)): retrieval at 1 and 16 clips, VQA at 768 px, MSRVTT-QA
+    at 8 clips x text 100 and TGIF action's multiple choice, each at its
+    config's settings (QA_SCORERS)."""
+    caps = _captions(rng, 33)
+    common = dict(device="cuda", compute_dtype=torch.bfloat16)
+    cases = []
+    for nc in (1, 16):
+        frames = rng.integers(0, 256, (2 * nc, 240, 320, 3), np.uint8)
+
+        def build(m, quantize, graphs, nc=nc):
+            return RetrievalScorer(m, cfg, tok, n_clips=nc, num_frm=2,
+                                   max_img_size=448, max_txt_len=20,
+                                   max_captions=32, quantize=quantize,
+                                   cuda_graphs=graphs, **common)
+
+        def request(sc, n, fr=frames):
+            f = sc.encode_frames(fr)
+            return f, sc.score(None, caps[:n], features=f)
+
+        cases.append((f"retrieval, {nc} clip(s) x 2 frames at 448 px",
+                      build, model, request, tuple(_text_buckets(32)),
+                      REQUEST_SIZES, (240, 320)))
+    for what, key, task, kw in QA_SCORERS:
+        if task == "frameqa":
+            continue
+        m, mcfg = qa_models[key]
+        if task == "vqa":
+            img = _jpeg(rng, 480, 640)
+
+            def build(m, quantize, graphs, mcfg=mcfg, kw=kw):
+                return VQAScorer(m, mcfg, tok, {i: f"ans{i}" for i in
+                                                range(QA_VQA_LABELS)},
+                                 max_questions=32, quantize=quantize,
+                                 cuda_graphs=graphs, **kw, **common)
+
+            def request(sc, n, img=img):
+                f = sc.encode_image(img)
+                return f, sc.probs(None, caps[:n], features=f)
+
+            cases.append((f"{what}, one 480x640 image at 768 px", build, m,
+                          request, tuple(_text_buckets(32)), REQUEST_SIZES,
+                          (480, 640)))
+            continue
+        frames = rng.integers(0, 256, (kw["n_clips"] * kw["num_frm"], 240,
+                                       320, 3), np.uint8)
+
+        def build(m, quantize, graphs, mcfg=mcfg, kw=kw, task=task):
+            return VideoQAScorer(
+                m, mcfg, tok, task, max_questions=32,
+                label2ans={i: f"ans{i}" for i in range(QA_OPEN_LABELS)},
+                quantize=quantize, cuda_graphs=graphs, **kw, **common)
+
+        if task == "action":
+            def request(sc, n, fr=frames):
+                f = sc.encode_frames(fr)
+                return f, sc.answer_mc(None, caps[0], caps[1:6], features=f)
+            buckets, timed = (5,), (5,)
+        else:
+            def request(sc, n, fr=frames):
+                f = sc.encode_frames(fr)
+                return f, sc.probs(None, caps[:n], features=f)
+            buckets, timed = tuple(_text_buckets(32)), (32,)
+        cases.append((f"{what}, {kw['n_clips']} clip(s) x {kw['num_frm']} "
+                      f"frame(s) at {kw['max_img_size']} px, text "
+                      f"{kw['max_txt_len']}", build, m, request, buckets,
+                      timed, (240, 320)))
+    return cases
+
+
+def _replay_vs_eager(what, request, g, eager, n, layers, graph_launches):
+    """One request of n texts on the graph scorer (counts from 0: one
+    attention launch a layer, on tc, 36 matmul_bn_act on wg, one stem on tc, no
+    capture) and on its eager twin; returns None where the features and
+    the probabilities are bit-equal, else the largest differences."""
+    before, captures = _counts(), cuda_graphs.CAPTURES
+    fg, pg = request(g, n)
+    d = [a - b for a, b in zip(_counts(), before)]
+    _expect(f"20 {what}: captures in a warmed request",
+            cuda_graphs.CAPTURES - captures, 0)
+    for i, want, kind in ((0, layers, "attention"),
+                          (3, layers, "attention on tc"),
+                          (1, MBA_PER_ENCODE, "matmul_bn_act"),
+                          (4, MBA_PER_ENCODE, "matmul_bn_act on wg"),
+                          (2, 1, "fused_stem_pool"),
+                          (5, 1, "fused_stem_pool on tc")):
+        _expect(f"20 {what}, replayed request, {kind}", d[i], want)
+    for i in range(6):
+        graph_launches[i] += d[i]
+    fe, pe = request(eager, n)
+    if torch.equal(fg, fe) and np.array_equal(pg, pe):
+        return None
+    return (_rel_gap(fg, fe) if fg.shape == fe.shape else float("nan"),
+            float(np.abs(pg - pe).max()))
+
+
+def _pool_bytes(pool) -> float:
+    """Bytes of the device segments that belong to a graph pool
+    (torch.cuda.memory_snapshot's ``segment_pool_id``); nan where the
+    snapshot does not say."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return float("nan")
+    return float(sum(sg["total_size"] for sg in segs
+                     if tuple(sg["segment_pool_id"]) == tuple(pool)))
+
+
+def _turns(request, g, eager, n):
+    """Host ms of ``request`` on the graph scorer and its eager twin in
+    turns (graphs first on even samples), GRAPH_SAMPLES each."""
+    ms = {"graphs": [], "eager": []}
+    request(g, n)
+    request(eager, n)
+    for i in range(GRAPH_SAMPLES):
+        for v in (("graphs", "eager") if i % 2 == 0 else ("eager", "graphs")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            request(g if v == "graphs" else eager, n)
+            torch.cuda.synchronize()
+            ms[v].append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _sustained_and_unwarmed(g, eager, rng):
+    """20e and 20f on the warmed 1-clip bf16 retrieval scorer."""
+    blob = bench_serving.make_clip(rng)
+    stats = bench_serving.sustained_load(
+        g, blob, bench_serving.caption_sets(SUSTAINED_CLIENTS, 32),
+        SUSTAINED_S)
+    print(f"20e sustained load, retrieval 1 clip, {SUSTAINED_CLIENTS} HTTP "
+          f"clients, each its own captions: {json.dumps(stats)}")
+    for k in ("n_err", "n_mismatch", "captures_after_warmup"):
+        if stats[k]:
+            raise AssertionError(f"20e sustained load: {k} {stats[k]}")
+    if not stats["n_ok"]:
+        raise AssertionError("20e sustained load: no request completed")
+    frames = rng.integers(0, 256, (2,) + UNWARMED_HW + (3,), np.uint8)
+    c0 = cuda_graphs.CAPTURES
+    first = g.encode_frames(frames)
+    _expect("20f unwarmed bucket, first request: captures",
+            cuda_graphs.CAPTURES - c0, 1)
+    before = _counts()
+    second = g.encode_frames(frames)
+    d = [a - b for a, b in zip(_counts(), before)]
+    _expect("20f unwarmed bucket, second request: captures",
+            cuda_graphs.CAPTURES - c0, 1)
+    _expect("20f second request, matmul_bn_act on wg", d[4], MBA_PER_ENCODE)
+    _expect("20f second request, fused_stem_pool on tc", d[5], 1)
+    want = eager.encode_frames(frames)
+    if not (torch.equal(first, want) and torch.equal(second, want)):
+        raise AssertionError("20f: the unwarmed bucket's features differ "
+                             "from the eager encode's")
+    print(f"20f unwarmed bucket {UNWARMED_HW} (collate bucket (512, 640)): "
+          f"the first request captured 1 graph, the second replayed it "
+          f"(36 wg + 1 tc launches, no capture); features bit-equal to the "
+          f"eager encode's")
+    return stats
+
+
+def phase_graphs(model, cfg, qa_models, tok):
+    """Phase 20. Returns the kernels' launches over the replayed requests
+    of 20b (attention, matmul_bn_act, fused_stem_pool)."""
+    import copy
+    import gc
+    t20 = time.perf_counter()
+    rng = np.random.default_rng(20)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    graph_launches = [0] * 6
+    int8_models, unequal, pools, timings = {}, [], {}, []
+    for what, build, m, request, buckets, timed, hw in _graph_cases(
+            model, cfg, qa_models, tok, rng):
+        for form in ("bf16", "int8"):
+            fm = m if form == "bf16" else int8_models.setdefault(
+                id(m), copy.deepcopy(m))
+            g = build(fm, form == "int8", None)
+            eager = build(fm, form == "int8", False)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_stats()
+            c0 = cuda_graphs.CAPTURES
+            t0 = time.perf_counter()
+            g.warmup((hw,))
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            mem1 = torch.cuda.memory_stats()
+            _expect(f"20 {what}, {form}: graphs captured at warmup",
+                    cuda_graphs.CAPTURES - c0, 1 + len(buckets))
+            eager.warmup((hw,))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            request(eager, max(buckets))
+            torch.cuda.synchronize()
+            pools[(what, form)] = (
+                mem1["reserved_bytes.all.current"]
+                - mem0["reserved_bytes.all.current"],
+                _pool_bytes(g._graphs.pool),
+                torch.cuda.max_memory_allocated() - base)
+            # ---- 20a, 20b: every warmed bucket, replay against eager -----
+            for b in buckets:
+                gap = _replay_vs_eager(f"{what}, {form}, {b} texts", request,
+                                       g, eager, b, cfg.num_hidden_layers,
+                                       graph_launches)
+                if gap is not None:
+                    unequal.append((what, form, b) + gap)
+            guard = time.perf_counter()
+            for _ in range(100):
+                g._graphs._guard.check()
+            guard_us = (time.perf_counter() - guard) * 1e4
+            print(f"20 {what}, {form}: warmup {warm_s:.2f} s, "
+                  f"{1 + len(buckets)} graphs captured; memory: reserved by "
+                  f"the warmup {pools[(what, form)][0] / 2**20:.1f} MiB, of "
+                  f"it the graphs' pool {pools[(what, form)][1] / 2**20:.1f}"
+                  f" MiB; the eager request's peak at {max(buckets)} texts "
+                  f"{pools[(what, form)][2] / 2**20:.1f} MiB; buckets "
+                  f"{buckets} replayed: 12 tc attention, 36 wg + 1 tc CNN "
+                  f"launches each, no capture; replay vs eager "
+                  + ("bit-equal" if not any(u[:2] == (what, form)
+                                            for u in unequal)
+                     else "DIFFERENT")
+                  + f"; model guard {guard_us:.1f} us a check")
+            # ---- 20c: request p50 / p90, eager against graphs in turns ----
+            if form == "bf16":
+                for n in timed:
+                    ms = _turns(request, g, eager, n)
+                    timings.append((what, n, ms))
+                    print(f"20c {what}, {n} text(s): request (encode + "
+                          f"scoring, host clock, {GRAPH_SAMPLES} each in "
+                          f"turns) p50 / p90 graphs "
+                          f"{np.percentile(ms['graphs'], 50):.2f} / "
+                          f"{np.percentile(ms['graphs'], 90):.2f} ms, eager "
+                          f"{np.percentile(ms['eager'], 50):.2f} / "
+                          f"{np.percentile(ms['eager'], 90):.2f} ms; card "
+                          f"{card}")
+            if form == "bf16" and what.startswith("retrieval, 1 clip"):
+                _sustained_and_unwarmed(g, eager, rng)
+            del g, eager
+    del int8_models
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("20d memory per scorer, MiB, bf16 / int8 (reserved by the "
+          "warmup: the pool, the static buffers and the capture stream's "
+          "cuBLAS workspace; the pool alone): " + "; ".join(
+              f"{w} {pools[(w, 'bf16')][0] / 2**20:.1f} / "
+              f"{pools[(w, 'int8')][0] / 2**20:.1f} ("
+              f"{pools[(w, 'bf16')][1] / 2**20:.1f} / "
+              f"{pools[(w, 'int8')][1] / 2**20:.1f})"
+              for w in dict.fromkeys(k[0] for k in pools)))
+    if unequal:
+        raise AssertionError(
+            "20a: replays not bit-equal to the eager calls (scorer, form, "
+            "bucket, features' relative gap, probabilities' largest "
+            f"difference): {unequal}")
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s; replayed requests "
+          f"launched attention {graph_launches[0]} ({graph_launches[3]} on "
+          f"tc), matmul_bn_act {graph_launches[1]} ({graph_launches[4]} on "
+          f"wg), fused_stem_pool {graph_launches[2]} ({graph_launches[5]} "
+          f"on tc) times; card {card}")
+    return graph_launches[:3]
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -4243,6 +4577,8 @@ def main() -> None:
         verify_launches, verify_shard = phase_verify_ckpt(
             model_cfg, run_cfg, tok, d, path, rows, matrix)
         print(f"phase 19: {time.perf_counter() - t19:.1f} s")
+        graph_launches = phase_graphs(model, model_cfg, qa_models, tok)
+        del qa_models
 
     def record(name, source, replaces, n, err, t, design, qa=None):
         out = {"name": name, "route": "cuda",
@@ -4254,7 +4590,8 @@ def main() -> None:
             # bf16 error and the times at its shapes; phases 16 and 17:
             # launches in the training runs (all in their validations);
             # phase 18: the 2-process training's validations (both ranks),
-            # phase 19: the int8 scorers' requests and verify_ckpt
+            # phase 19: the int8 scorers' requests and verify_ckpt; phase
+            # 20: the replayed requests of the graph scorers
             i = ("fused_attention", "matmul_bn_act",
                  "fused_stem_pool").index(name)
             out.update(qa_launches=qa_launches[i], qa_max_abs_err=qa_err[name],
@@ -4265,7 +4602,8 @@ def main() -> None:
                        train18_launches=train18_launches[i],
                        train18_max_abs_err=train18_err[name],
                        int8_launches=int8_launches[i],
-                       verify_ckpt_launches=verify_launches[i])
+                       verify_ckpt_launches=verify_launches[i],
+                       graph_launches=graph_launches[i])
         else:
             # read in phases 18a-b (every rank's steps and 18b's main path),
             # 19a-b and 19c; none of them scores tensor-parallel
@@ -4283,7 +4621,7 @@ def main() -> None:
           "for fp32, S > 176 and dh % 16 != 0)")
     print(json.dumps({"kernels": [
         record("fused_attention", "fused_attention.cu",
-               "clipbert_tpu/ops/pallas_attention.py:73", launches[0],
+               "clipbert_tpu/ops/pallas_attention.py:74", launches[0],
                attn_err, attn_times[(512, 69, 12, 64)], tc, qa=True),
         record("matmul_bn_act", "matmul_bn_act.cu",
                "clipbert_tpu/ops/pallas_kernels.py:65", launches[1], mba_err,

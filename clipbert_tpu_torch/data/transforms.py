@@ -18,6 +18,7 @@ Native-size uint8 frames cross to the device, not 448^2 floats.
 
 from __future__ import annotations
 
+import functools
 import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -178,10 +179,19 @@ def mk_input_group(key_grouped_examples: Dict, max_n_example_per_group: int = 2,
     return input_groups
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_constants(mean: Tuple[float, ...], std: Tuple[float, ...],
+                    device: torch.device):
+    """The (mean, std) fp32 tensors on ``device``, made once: a host to
+    device copy cannot run inside a CUDA graph's capture, and the first
+    call of every captured encode runs eagerly first."""
+    return (torch.tensor(mean, dtype=torch.float32, device=device),
+            torch.tensor(std, dtype=torch.float32, device=device))
+
+
 def _normalize(x: torch.Tensor, mean: Sequence[float],
                std: Sequence[float], compute_dtype) -> torch.Tensor:
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+    mean_t, std_t = _norm_constants(tuple(mean), tuple(std), x.device)
     if max(mean) <= 1.0:
         x = x / 255.0
     return ((x - mean_t) / std_t).to(compute_dtype)
@@ -250,7 +260,10 @@ def device_preprocess(frames: np.ndarray, src_hw: np.ndarray, out_size: int,
                       compute_dtype=torch.bfloat16, exact: bool = False, *,
                       device: torch.device | str) -> torch.Tensor:
     """Host uint8 frames (B, T, Hbuf, Wbuf, 3) + (B, 4) src_hw -> normalized
-    pixels on ``device``; only the uint8 buffer crosses to the device."""
+    pixels on ``device``; only the uint8 buffer crosses to the device. The
+    copy is the host's part; :func:`resize_pad_normalize` is the device's,
+    which the scorers capture in a CUDA graph that reads static buffers
+    the copy fills (serve.py, utils/cuda_graphs.py)."""
     f = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
     hw = torch.from_numpy(np.asarray(src_hw, np.int64)).to(device)
     return resize_pad_normalize(f, hw, int(out_size), mean, std,

@@ -38,10 +38,12 @@ import torch
 
 from clipbert_tpu_torch.ops import refuse_autograd
 
-# Kernel launches since the process started (or since a caller reset it).
-# Incremented only where the CUDA kernel is launched; TC_LAUNCHES counts
-# those of the tensor-core body and SHARD_HEADS_LAUNCHES those made through
-# fused_attention_shard_heads (both in LAUNCHES too).
+# Kernel launches on the card since the process started (or since a caller
+# reset it). Incremented only where the CUDA kernel is launched; TC_LAUNCHES
+# counts those of the tensor-core body and SHARD_HEADS_LAUNCHES those made
+# through fused_attention_shard_heads (both in LAUNCHES too). Under a CUDA
+# graph's capture nothing runs: utils/cuda_graphs.py takes a capture's
+# counts back and adds them again at each replay of the graph.
 LAUNCHES = 0
 TC_LAUNCHES = 0
 SHARD_HEADS_LAUNCHES = 0

@@ -38,9 +38,11 @@ import torch.nn.functional as F
 from clipbert_tpu_torch.ops import refuse_autograd
 from clipbert_tpu_torch.ops.matmul_bn_act import _aligned16, _n_sms
 
-# Kernel launches since the process started (or since a caller reset it).
-# Incremented only where the CUDA kernel is launched; TC_LAUNCHES counts
-# those of the tensor-core body (in LAUNCHES too).
+# Kernel launches on the card since the process started (or since a caller
+# reset it). Incremented only where the CUDA kernel is launched; TC_LAUNCHES
+# counts those of the tensor-core body (in LAUNCHES too). A CUDA graph's
+# capture counts nothing and each replay what the graph recorded
+# (utils/cuda_graphs.py).
 LAUNCHES = 0
 TC_LAUNCHES = 0
 

@@ -40,9 +40,11 @@ import torch
 
 from clipbert_tpu_torch.ops import refuse_autograd
 
-# Kernel launches since the process started (or since a caller reset it).
-# Incremented only where the CUDA kernel is launched; WG_LAUNCHES counts
-# those of the wgmma body (in LAUNCHES too).
+# Kernel launches on the card since the process started (or since a caller
+# reset it). Incremented only where the CUDA kernel is launched; WG_LAUNCHES
+# counts those of the wgmma body (in LAUNCHES too). A CUDA graph's capture
+# counts nothing and each replay what the graph recorded
+# (utils/cuda_graphs.py).
 LAUNCHES = 0
 WG_LAUNCHES = 0
 

@@ -20,15 +20,34 @@ kernel (ops/fused_attention.py) and the encode runs the CNN's kernel form
 (ops/fused_stem_pool.py, ops/matmul_bn_act.py). ``--device`` defaults to cuda and there is
 no CPU fallback: a missing card is an error.
 
-Thread-safety: after __init__ the scorer is read-only (the model is never
-mutated again; the tokenizer holds read-only dicts), so the threaded HTTP
-server may call it concurrently; PyTorch serializes work per CUDA stream.
+One CUDA graph per bucket (the JAX scorers' one compiled program per
+bucket, clipbert_tpu/serve.py:9-15): on a CUDA device each scorer captures
+the encode of each 64 px collate bucket of (h, w) and the scoring call of
+each text bucket (utils/cuda_graphs.py), at ``warmup`` or on a bucket's
+first request; a request copies its inputs into the graph's static
+buffers, replays the graph and copies the result out. ``cuda_graphs=False``
+runs every call eagerly (the comparisons); True on a CPU device raises.
+The results are the eager calls', bit for bit.
+
+Ownership: a scorer owns its model. BN folding, quantization and the move
+to ``device`` happen in place at construction, and the graphs record the
+parameters' addresses: replacing a parameter or a module of the model
+afterwards (quantize_scoring_params on a model another scorer captured
+with, say) fails that scorer's next request; it is never read stale.
+
+Thread-safety: the threaded HTTP server calls a scorer concurrently. The
+model and the tokenizer are read-only after __init__, but the graphs'
+static inputs and outputs are shared, mutable buffers: each scorer's lock
+serializes a request's copy-in, replays and copy-out (decode and
+tokenization run outside it), so a response never reads another request's
+buffers. Tensors the scorer returns (``encode_frames``) are copies.
 """
 
 from __future__ import annotations
 
 import base64
 import binascii
+import functools
 import json
 import logging
 from typing import Dict, List, Optional, Sequence
@@ -41,6 +60,7 @@ from clipbert_tpu_torch.data import transforms, video
 from clipbert_tpu_torch.data.tokenization import BertTokenizer
 from clipbert_tpu_torch.models import clipbert
 from clipbert_tpu_torch.train import steps
+from clipbert_tpu_torch.utils.cuda_graphs import BucketGraphs
 
 LOGGER = logging.getLogger(__name__)
 
@@ -66,14 +86,14 @@ def _topk_answers(probs: np.ndarray, label2ans: Dict[int, str],
     return out
 
 
-def _text_buckets(cap: int):
-    """Every power-of-two text-count bucket a scorer can see (4..cap)."""
-    b = 4
-    while True:
-        yield min(b, cap)
-        if b >= cap:
-            return
-        b *= 2
+def _text_buckets(cap: int) -> List[int]:
+    """Every power-of-two text-count bucket a scorer can see (4..cap),
+    largest first: warmed in that order, the smaller buckets' graphs reuse
+    the largest one's memory in the scorer's pool."""
+    out = [min(4, cap)]
+    while out[-1] < cap:
+        out.append(min(2 * out[-1], cap))
+    return out[::-1]
 
 
 def _round_to_collate_bucket(frames: np.ndarray) -> np.ndarray:
@@ -90,28 +110,37 @@ def _round_to_collate_bucket(frames: np.ndarray) -> np.ndarray:
     return buf
 
 
-def _device_pixels(frames: np.ndarray, max_img_size: int, mean, std, dtype,
-                   device) -> torch.Tensor:
-    """(T, H, W, 3) uint8 native frames -> (1, T, S, S, 3) device pixels."""
+def _host_frames(frames: np.ndarray, max_img_size: int):
+    """(T, H, W, 3) uint8 native frames -> the host inputs of the device
+    preprocess: the (1, T, Hb, Wb, 3) collate-bucket buffer and the (1, 4)
+    src_hw [h, w, resized h, resized w]."""
     h, w = frames.shape[1:3]
-    frames = _round_to_collate_bucket(frames)
     nh, nw = transforms.get_resize_size(h, w, max_img_size)
-    src_hw = np.array([[h, w, nh, nw]], np.int64)
-    return transforms.device_preprocess(frames[None], src_hw, max_img_size,
-                                        mean, std, dtype, device=device)
+    return (np.ascontiguousarray(_round_to_collate_bucket(frames)[None]),
+            np.array([[h, w, nh, nw]], np.int64))
+
+
+def _encode_key(frames: np.ndarray):
+    """The encode graph of a (1, T, Hb, Wb, 3) collate-bucket buffer."""
+    return ("encode",) + frames.shape[2:4]
+
+
+def _text_key(ids: np.ndarray):
+    """The scoring graph of (bucket, max_txt_len) padded texts."""
+    return ("text", ids.shape[0])
 
 
 def _pad_texts(tokenizer: BertTokenizer, texts: Sequence[str],
-               max_txt_len: int, bucket: int, device):
+               max_txt_len: int, bucket: int):
     """Tokenize + zero-pad the text count up to the bucket (padded rows are
-    all-zero ids/mask and are sliced off by the caller)."""
+    all-zero ids/mask and are sliced off by the caller): host (bucket,
+    max_txt_len) int64 ids and mask."""
     enc = tokenizer.batch_encode(list(texts), max_txt_len)
     ids = np.zeros((bucket, max_txt_len), np.int64)
     mask = np.zeros((bucket, max_txt_len), np.int64)
     ids[:len(texts)] = enc["input_ids"]
     mask[:len(texts)] = enc["attention_mask"]
-    return (torch.from_numpy(ids).to(device),
-            torch.from_numpy(mask).to(device))
+    return ids, mask
 
 
 def _prepare_model(model: clipbert.ClipBert, fold_bn: bool, device,
@@ -135,6 +164,16 @@ def _check_device(device) -> torch.device:
     return device
 
 
+def _graphs_on(cuda_graphs: Optional[bool], device: torch.device) -> bool:
+    """``cuda_graphs=None``: graphs on a CUDA device, eager elsewhere."""
+    if cuda_graphs is None:
+        return device.type == "cuda"
+    if cuda_graphs and device.type != "cuda":
+        raise ValueError(f"cuda_graphs=True needs a CUDA device, not "
+                         f"{device}")
+    return cuda_graphs
+
+
 def _load_checkpoint(model_config_path: str, e2e_weights_path: str,
                      head: str, device, **cfg_kw):
     """(model, model config) from a deploy checkpoint (.npz in the JAX key
@@ -154,10 +193,84 @@ def _load_checkpoint(model_config_path: str, e2e_weights_path: str,
     return model, model_cfg
 
 
-class _ResidentVideoScorer:
+class _Scorer:
+    """What the three scorers share: the model they own on one device, the
+    encode (host frames -> collate bucket -> device resize / pad /
+    normalize -> CNN), the padded texts, and each call run as the replay
+    of its bucket's CUDA graph (or eagerly). Subclasses set the task's
+    settings, ``_step`` (the scoring step) and ``_features``."""
+
+    def _setup(self, model, model_cfg, tokenizer, device, max_img_size,
+               max_txt_len, mean, std, compute_dtype, fold_bn, quantize,
+               use_kernels, cuda_graphs) -> None:
+        self.device = _check_device(device)
+        self.model = _prepare_model(model, fold_bn, self.device, quantize)
+        self.model_cfg = model_cfg
+        self.tokenizer = tokenizer
+        self.max_img_size = max_img_size
+        self.max_txt_len = max_txt_len
+        self.mean, self.std = mean, std
+        self.compute_dtype = compute_dtype
+        self._encode = steps.make_visual_encode_step(compute_dtype,
+                                                     use_kernels)
+        self._graphs = BucketGraphs(self.device, self.model,
+                                    _graphs_on(cuda_graphs, self.device))
+
+    def _encode_device(self, frames: torch.Tensor,
+                       src_hw: torch.Tensor) -> torch.Tensor:
+        """The encode graph's body: device uint8 collate-bucket frames and
+        src_hw -> grid features."""
+        return self._features(transforms.resize_pad_normalize(
+            frames, src_hw, self.max_img_size, self.mean, self.std,
+            self.compute_dtype))
+
+    def encode_frames(self, frames: np.ndarray) -> torch.Tensor:
+        """(T, H, W, 3) uint8 frames -> grid features on the scorer's
+        device, a tensor of the caller's (never a graph's buffer)."""
+        host = _host_frames(frames, self.max_img_size)
+        with self._graphs.locked():
+            feats = self._graphs.run(_encode_key(host[0]),
+                                     self._encode_device, *host)
+            return feats.clone() if self._graphs.enabled else feats
+
+    def _call(self, frames: Optional[np.ndarray],
+              features: Optional[torch.Tensor], texts: Sequence[str],
+              bucket: int) -> torch.Tensor:
+        """One request's device work: the encode of host ``frames``
+        (unless ``features`` are given), then the scoring step on the texts
+        padded to ``bucket``. Returns the step's output on the host."""
+        ids, mask = _pad_texts(self.tokenizer, texts, self.max_txt_len,
+                               bucket)
+        host = None if features is not None else _host_frames(
+            frames, self.max_img_size)
+        with self._graphs.locked():
+            if features is None:
+                features = self._graphs.run(_encode_key(host[0]),
+                                            self._encode_device, *host)
+            out = self._graphs.run(_text_key(ids),
+                                   functools.partial(self._step, self.model),
+                                   features, ids, mask)
+            return out.cpu()
+
+    def _warm_encode(self, sample_hws, frames: int
+                     ) -> Optional[torch.Tensor]:
+        """The encode of each listed (h, w)'s bucket, on zero frames;
+        returns the last one's features."""
+        feats = None
+        for h, w in sample_hws:
+            feats = self.encode_frames(np.zeros((frames, h, w, 3), np.uint8))
+        return feats
+
+    def _mark_warm(self, what: str) -> None:
+        self._graphs.warm = True
+        LOGGER.info(f"{type(self).__name__} warm: {what} ready"
+                    + (f" ({len(self._graphs)} CUDA graphs)"
+                       if self._graphs.enabled else ""))
+
+
+class _ResidentVideoScorer(_Scorer):
     """Decode -> device resize -> cached CNN encode, shared by resident
-    video scorers. Subclasses set: model, device, n_clips, num_frm, fps,
-    max_img_size, mean, std, compute_dtype, _encode."""
+    video scorers. Subclasses set: n_clips, num_frm, fps."""
 
     def _decode_clips(self, video_bytes: bytes) -> Optional[np.ndarray]:
         """(n_clips*num_frm, H, W, 3) uint8, uniform clip ensemble (the eval
@@ -166,11 +279,15 @@ class _ResidentVideoScorer:
             video_bytes, num_frames=self.num_frm, target_fps=self.fps,
             num_clips=self.n_clips, random_clips=False)
 
-    def encode_frames(self, frames: np.ndarray) -> torch.Tensor:
-        """(n_clips*num_frm, H, W, 3) uint8 frames -> cached grid features
-        (1, n_clips, num_frm, Hg, Wg, D) on the scorer's device."""
-        pixels = _device_pixels(frames, self.max_img_size, self.mean,
-                                self.std, self.compute_dtype, self.device)
+    def _frames(self, video_bytes: bytes) -> np.ndarray:
+        frames = self._decode_clips(video_bytes)
+        if frames is None:
+            raise ValueError("undecodable video payload")
+        return frames
+
+    def _features(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(1, n_clips*num_frm, S, S, 3) pixels -> (1, n_clips, num_frm,
+        Hg, Wg, D) grid features."""
         pixels = pixels.reshape((self.n_clips, self.num_frm)
                                 + pixels.shape[2:])
         feats = self._encode(self.model, pixels)
@@ -179,10 +296,7 @@ class _ResidentVideoScorer:
     def encode_video(self, video_bytes: bytes) -> torch.Tensor:
         """Decode + :meth:`encode_frames`. Reuse the features across many
         score() calls via ``features=``."""
-        frames = self._decode_clips(video_bytes)
-        if frames is None:
-            raise ValueError("undecodable video payload")
-        return self.encode_frames(frames)
+        return self.encode_frames(self._frames(video_bytes))
 
 
 class RetrievalScorer(_ResidentVideoScorer):
@@ -196,7 +310,8 @@ class RetrievalScorer(_ResidentVideoScorer):
     ``device`` happen in place. ``use_kernels`` picks the CNN's form
     (models/resnet.py::resnet50_forward); None runs the kernel form on a
     CUDA device. ``quantize`` int8-quantizes the transformer's denses
-    (:func:`_prepare_model`).
+    (:func:`_prepare_model`). ``cuda_graphs`` (None: on a CUDA device)
+    replays one CUDA graph per encode and caption bucket.
     """
 
     def __init__(self, model: clipbert.ClipBert, model_cfg: ModelConfig,
@@ -208,26 +323,20 @@ class RetrievalScorer(_ResidentVideoScorer):
                  std=transforms.IMAGENET_STD_1,
                  compute_dtype=torch.bfloat16, fold_bn: bool = True,
                  use_kernels: Optional[bool] = None,
-                 quantize: bool = False):
-        self.device = _check_device(device)
-        self.model = _prepare_model(model, fold_bn, self.device, quantize)
-        self.model_cfg = model_cfg
-        self.tokenizer = tokenizer
+                 quantize: bool = False,
+                 cuda_graphs: Optional[bool] = None):
+        self._setup(model, model_cfg, tokenizer, device, max_img_size,
+                    max_txt_len, mean, std, compute_dtype, fold_bn,
+                    quantize, use_kernels, cuda_graphs)
         self.num_frm = num_frm
         self.n_clips = n_clips
         self.fps = fps
-        self.max_img_size = max_img_size
-        self.max_txt_len = max_txt_len
         self.max_captions = max_captions
         self.score_agg_func = score_agg_func
-        self.mean, self.std = mean, std
-        self.compute_dtype = compute_dtype
         ts = steps.TaskSettings(head_type="retrieval",
                                 loss_type=model_cfg.loss_type,
                                 score_agg_func=score_agg_func)
-        self._encode = steps.make_visual_encode_step(compute_dtype,
-                                                     use_kernels)
-        self._prob = steps.make_text_prob_step(model_cfg, ts, compute_dtype)
+        self._step = steps.make_text_prob_step(model_cfg, ts, compute_dtype)
 
     @classmethod
     def from_checkpoint(cls, model_config_path: str, tokenizer_dir: str,
@@ -242,10 +351,6 @@ class RetrievalScorer(_ResidentVideoScorer):
         tok = BertTokenizer.from_dir(tokenizer_dir)
         return cls(model, model_cfg, tok, device=device, **kw)
 
-    def _pad_texts(self, texts: Sequence[str], bucket: int):
-        return _pad_texts(self.tokenizer, texts, self.max_txt_len, bucket,
-                          self.device)
-
     def score(self, video_bytes: Optional[bytes], captions: Sequence[str],
               features: Optional[torch.Tensor] = None) -> np.ndarray:
         """Per-caption positive probabilities (len(captions),)."""
@@ -256,29 +361,25 @@ class RetrievalScorer(_ResidentVideoScorer):
                 f"{len(captions)} captions > max_captions="
                 f"{self.max_captions}; raise max_captions at construction "
                 "or chunk the query")
-        if features is None:
-            features = self.encode_video(video_bytes)
+        frames = None if features is not None else self._frames(video_bytes)
         n = len(captions)
-        ids, mask = self._pad_texts(captions,
-                                    _pow2_bucket(n, self.max_captions))
-        probs = self._prob(self.model, features, ids, mask)
-        return probs[0, :n].cpu().numpy()
+        probs = self._call(frames, features, captions,
+                           _pow2_bucket(n, self.max_captions))
+        return probs[0, :n].numpy()
 
     def warmup(self, sample_hws=((240, 320),)) -> None:
-        """Run the encode path once per listed (h, w) and the scoring path
-        once per caption bucket before taking traffic (cuDNN algorithm
-        choice, kernel build and load)."""
-        feats = None
-        for h, w in sample_hws:
-            frames = np.zeros((self.n_clips * self.num_frm, h, w, 3),
-                              np.uint8)
-            feats = self.encode_frames(frames)
+        """Capture (or, eagerly, run once) the encode of each listed
+        (h, w)'s 64 px bucket and the scoring call of each caption bucket
+        before taking traffic; a request in an unlisted bucket captures
+        its graph on first arrival."""
+        feats = self._warm_encode(sample_hws,
+                                   self.n_clips * self.num_frm)
         for b in _text_buckets(self.max_captions):
             self.score(None, ["warmup"] * b, features=feats)
-        LOGGER.info("RetrievalScorer warm: encode + caption buckets ready")
+        self._mark_warm("encode + caption buckets")
 
 
-class VQAScorer:
+class VQAScorer(_Scorer):
     """Resident single-image question answering (the VQA task family).
 
     answer(image_bytes, questions) -> per-question top-k (answer, score)
@@ -288,7 +389,7 @@ class VQAScorer:
     px buckets. The scorer takes ownership of ``model`` as
     RetrievalScorer does. ``use_kernels`` picks the CNN's form and
     ``fused_attn`` the attention core (None: the kernels on a CUDA
-    device)."""
+    device); ``cuda_graphs`` as in RetrievalScorer."""
 
     def __init__(self, model: clipbert.ClipBert, model_cfg: ModelConfig,
                  tokenizer: BertTokenizer, label2ans: Dict[int, str], *,
@@ -299,24 +400,18 @@ class VQAScorer:
                  compute_dtype=torch.bfloat16, fold_bn: bool = True,
                  use_kernels: Optional[bool] = None,
                  fused_attn: Optional[bool] = None,
-                 quantize: bool = False):
-        self.device = _check_device(device)
-        self.model = _prepare_model(model, fold_bn, self.device, quantize)
-        self.model_cfg = model_cfg
-        self.tokenizer = tokenizer
+                 quantize: bool = False,
+                 cuda_graphs: Optional[bool] = None):
+        self._setup(model, model_cfg, tokenizer, device, max_img_size,
+                    max_txt_len, mean, std, compute_dtype, fold_bn,
+                    quantize, use_kernels, cuda_graphs)
         self.label2ans = {int(k): v for k, v in label2ans.items()}
-        self.max_img_size = max_img_size
-        self.max_txt_len = max_txt_len
         self.max_questions = max_questions
-        self.mean, self.std = mean, std
-        self.compute_dtype = compute_dtype
         ts = steps.TaskSettings(head_type="seq_cls",
                                 num_labels=model_cfg.num_labels,
                                 loss_type=model_cfg.loss_type)
-        self._encode = steps.make_visual_encode_step(compute_dtype,
-                                                     use_kernels)
-        self._answer = steps.make_qa_answer_step(model_cfg, ts,
-                                                 compute_dtype, fused_attn)
+        self._step = steps.make_qa_answer_step(model_cfg, ts, compute_dtype,
+                                               fused_attn)
 
     @classmethod
     def from_checkpoint(cls, model_config_path: str, tokenizer_dir: str,
@@ -336,22 +431,24 @@ class VQAScorer:
                    {v: k for k, v in ans2label.items()}, device=device,
                    **kw)
 
-    def encode_image(self, image_bytes: bytes) -> torch.Tensor:
-        """JPEG/PNG bytes -> cached grid features (1, 1, Hg, Wg, D)."""
+    @staticmethod
+    def _image(image_bytes: bytes) -> np.ndarray:
+        """JPEG/PNG bytes -> (1, H, W, 3) uint8 pixels."""
         import io
         from PIL import Image
         try:
             img = Image.open(io.BytesIO(image_bytes))
-            frames = np.asarray(img.convert("RGB"), np.uint8)[None]
+            return np.asarray(img.convert("RGB"), np.uint8)[None]
         except Exception as e:
             raise ValueError(f"undecodable image payload: {e}") from None
-        return self.encode_frames(frames)
 
-    def encode_frames(self, frames: np.ndarray) -> torch.Tensor:
-        """(1, H, W, 3) uint8 pixels -> grid features (1, 1, Hg, Wg, D)."""
-        pixels = _device_pixels(frames, self.max_img_size, self.mean,
-                                self.std, self.compute_dtype, self.device)
+    def _features(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(1, 1, S, S, 3) pixels -> grid features (1, 1, Hg, Wg, D)."""
         return self._encode(self.model, pixels)
+
+    def encode_image(self, image_bytes: bytes) -> torch.Tensor:
+        """JPEG/PNG bytes -> cached grid features (1, 1, Hg, Wg, D)."""
+        return self.encode_frames(self._image(image_bytes))
 
     def answer(self, image_bytes: Optional[bytes], questions: Sequence[str],
                top_k: int = 5, features: Optional[torch.Tensor] = None
@@ -364,24 +461,19 @@ class VQAScorer:
               features: Optional[torch.Tensor] = None) -> np.ndarray:
         """(len(questions), num_labels) answer probabilities."""
         _check_count(questions, self.max_questions, "question")
-        if features is None:
-            features = self.encode_image(image_bytes)
+        frames = None if features is not None else self._image(image_bytes)
         n = len(questions)
-        ids, mask = _pad_texts(self.tokenizer, questions, self.max_txt_len,
-                               _pow2_bucket(n, self.max_questions),
-                               self.device)
-        return self._answer(self.model, features, ids,
-                            mask)[:n].cpu().numpy()
+        return self._call(frames, features, questions,
+                          _pow2_bucket(n, self.max_questions))[:n].numpy()
 
     def warmup(self, sample_hws=((480, 640),)) -> None:
-        """One encode per listed (h, w) and one call per question bucket
-        before taking traffic."""
-        feats = None
-        for h, w in sample_hws:
-            feats = self.encode_frames(np.zeros((1, h, w, 3), np.uint8))
+        """The encode of each listed (h, w)'s bucket and each question
+        bucket's call before taking traffic (captured on a CUDA
+        device)."""
+        feats = self._warm_encode(sample_hws, 1)
         for b in _text_buckets(self.max_questions):
             self.answer(None, ["warmup"] * b, features=feats)
-        LOGGER.info("VQAScorer warm: encode + question buckets ready")
+        self._mark_warm("encode + question buckets")
 
 
 MC_QA_TASKS = ("action", "transition")
@@ -399,7 +491,9 @@ class VideoQAScorer(_ResidentVideoScorer):
     (action / transition): ``answer_mc(video_bytes, question, options)``
     -> per-option probabilities of the multi-choice single-logit head on
     the dataset's question + " " + option texts. The scorer takes ownership
-    of ``model``; ``use_kernels`` and ``fused_attn`` as in VQAScorer."""
+    of ``model``; ``use_kernels``, ``fused_attn`` and ``cuda_graphs`` as in
+    VQAScorer (the MC tasks capture one scoring graph, of ``n_options``
+    texts)."""
 
     def __init__(self, model: clipbert.ClipBert, model_cfg: ModelConfig,
                  tokenizer: BertTokenizer, task: str, *,
@@ -414,39 +508,34 @@ class VideoQAScorer(_ResidentVideoScorer):
                  compute_dtype=torch.bfloat16, fold_bn: bool = True,
                  use_kernels: Optional[bool] = None,
                  fused_attn: Optional[bool] = None,
-                 quantize: bool = False):
+                 quantize: bool = False,
+                 cuda_graphs: Optional[bool] = None):
         if task not in MC_QA_TASKS + OPEN_QA_TASKS:
             raise ValueError(f"unknown video-QA task {task!r}")
-        self.device = _check_device(device)
-        self.model = _prepare_model(model, fold_bn, self.device, quantize)
-        self.model_cfg = model_cfg
-        self.tokenizer = tokenizer
+        is_mc = task in MC_QA_TASKS
+        if not is_mc and not label2ans:
+            raise ValueError("open-ended video-QA needs label2ans")
+        self._setup(model, model_cfg, tokenizer, device, max_img_size,
+                    max_txt_len, mean, std, compute_dtype, fold_bn,
+                    quantize, use_kernels, cuda_graphs)
         self.task = task
-        self.is_mc = task in MC_QA_TASKS
+        self.is_mc = is_mc
         self.n_options = n_options
         self.num_frm = num_frm
         self.n_clips = n_clips
         self.fps = fps
-        self.max_img_size = max_img_size
-        self.max_txt_len = max_txt_len
         self.max_questions = max_questions
-        self.mean, self.std = mean, std
-        self.compute_dtype = compute_dtype
         if self.is_mc:
             head, labels = "multi_choice", n_options
             self.label2ans = None
         else:
-            if not label2ans:
-                raise ValueError("open-ended video-QA needs label2ans")
             self.label2ans = {int(k): v for k, v in label2ans.items()}
             head, labels = "seq_cls", model_cfg.num_labels
         ts = steps.TaskSettings(head_type=head, num_labels=labels,
                                 loss_type="ce",
                                 score_agg_func=score_agg_func,
                                 train_n_clips=n_clips)
-        self._encode = steps.make_visual_encode_step(compute_dtype,
-                                                     use_kernels)
-        self._prob = steps.make_videoqa_prob_step(model_cfg, ts,
+        self._step = steps.make_videoqa_prob_step(model_cfg, ts,
                                                   compute_dtype, fused_attn)
 
     @classmethod
@@ -474,10 +563,6 @@ class VideoQAScorer(_ResidentVideoScorer):
         return cls(model, model_cfg, tok, task, device=device,
                    label2ans=label2ans, n_options=n_options, **kw)
 
-    def _texts(self, texts: Sequence[str], bucket: int):
-        return _pad_texts(self.tokenizer, texts, self.max_txt_len, bucket,
-                          self.device)
-
     def probs(self, video_bytes: Optional[bytes], questions: Sequence[str],
               features: Optional[torch.Tensor] = None) -> np.ndarray:
         """Open-ended tasks: (len(questions), num_labels) answer
@@ -485,12 +570,10 @@ class VideoQAScorer(_ResidentVideoScorer):
         if self.is_mc:
             raise ValueError("multiple-choice tasks answer via answer_mc()")
         _check_count(questions, self.max_questions, "question")
-        if features is None:
-            features = self.encode_video(video_bytes)
+        frames = None if features is not None else self._frames(video_bytes)
         n = len(questions)
-        ids, mask = self._texts(questions,
-                                _pow2_bucket(n, self.max_questions))
-        return self._prob(self.model, features, ids, mask)[:n].cpu().numpy()
+        return self._call(frames, features, questions,
+                          _pow2_bucket(n, self.max_questions))[:n].numpy()
 
     def answer(self, video_bytes: Optional[bytes], questions: Sequence[str],
                top_k: int = 5, features: Optional[torch.Tensor] = None
@@ -509,26 +592,22 @@ class VideoQAScorer(_ResidentVideoScorer):
         if len(options) != self.n_options:
             raise ValueError(f"need exactly {self.n_options} options, got "
                              f"{len(options)}")
-        if features is None:
-            features = self.encode_video(video_bytes)
+        frames = None if features is not None else self._frames(video_bytes)
         texts = [question + " " + o for o in options]   # the dataset's
-        ids, mask = self._texts(texts, self.n_options)
-        return self._prob(self.model, features, ids, mask)[0].cpu().numpy()
+        return self._call(frames, features, texts, self.n_options)[0].numpy()
 
     def warmup(self, sample_hws=((240, 320),)) -> None:
-        """One encode per listed (h, w) and the question / option calls
-        before taking traffic."""
-        feats = None
-        for h, w in sample_hws:
-            feats = self.encode_frames(np.zeros(
-                (self.n_clips * self.num_frm, h, w, 3), np.uint8))
+        """The encode of each listed (h, w)'s bucket and the question /
+        option calls before taking traffic (captured on a CUDA device)."""
+        feats = self._warm_encode(sample_hws,
+                                   self.n_clips * self.num_frm)
         if self.is_mc:
             self.answer_mc(None, "warmup", ["w"] * self.n_options,
                            features=feats)
         else:
             for b in _text_buckets(self.max_questions):
                 self.answer(None, ["warmup"] * b, features=feats)
-        LOGGER.info("VideoQAScorer warm: encode + question calls ready")
+        self._mark_warm("encode + question calls")
 
 
 def _check_count(texts: Sequence[str], cap: int, what: str) -> None:

@@ -550,7 +550,13 @@ def make_text_prob_step(cfg: ModelConfig, ts: TaskSettings,
     must split over the data axis, as the JAX step requires), scores its
     data shard, and the (B_v, B_t / n_data) shards are gathered over the
     data group in data order, so every rank returns what the JAX step's
-    global array holds."""
+    global array holds.
+
+    Without a mesh, this step, make_videoqa_prob_step,
+    make_qa_answer_step and make_visual_encode_step make no host sync and
+    no host-to-device copy, so the scorers capture them in CUDA graphs
+    (serve.py); the mesh branch's all_gather is never captured (no scorer
+    takes a mesh)."""
     score = make_text_score_step(cfg, ts, compute_dtype, fused_attn, mesh)
 
     @torch.inference_mode()

@@ -86,7 +86,9 @@ NEW_MODULES = ["clipbert_tpu_torch.core.mesh",
                "clipbert_tpu_torch.utils.logger",
                "clipbert_tpu_torch.utils.profiling",
                "clipbert_tpu_torch.ckpt.torch_import",
-               "clipbert_tpu_torch.tasks.run_pretrain"]
+               "clipbert_tpu_torch.tasks.run_pretrain",
+               "clipbert_tpu_torch.utils.cuda_graphs",
+               "clipbert_tpu_torch.bench_serving"]
 _CHECK = _CHECK.replace("NEW_MODULES", repr(NEW_MODULES))
 
 
