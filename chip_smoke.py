@@ -140,7 +140,8 @@ Phases; any failure raises and the script exits non-zero:
     ranks as ``train18_launches`` and its worst error as
     ``train18_max_abs_err``; phase 19's int8 requests' launches as
     ``int8_launches`` and verify_ckpt's as ``verify_ckpt_launches``;
-    phase 20's replayed requests' as ``graph_launches``;
+    phase 20's replayed requests' as ``graph_launches``; phase 22's as
+    ``eval_tools_launches`` and phase 23's as ``configs_launches``;
     fused_attention_shard_heads's record reads its own count in each:
     ``train18_launches`` over 18a's steps and 18b's ranks),
     then {"ok": true, "device": {...}}.
@@ -254,6 +255,39 @@ fails or outlives its phase's timeout fails the script.
     every response equal to its client's serial result, no capture. 20f:
     a request at an unwarmed resolution bucket captures once, the next
     replays, both bit-equal to the eager encode.
+21. (after phase 20) the training tools. 21a: three updates of the full
+    retrieval model on seeded gradients, the group-fused update
+    (train/optim.py, the train step's default) against the per-leaf one:
+    without clipping every parameter and moment bit-equal, with clipping
+    within UPDATE_NORM_RTOL / UPDATE_LEAF_TOL; one update in each form
+    timed in turns (CUDA events, the host's dispatch, the device time and
+    kernel launches of a torch.profiler window). 21b: the MSRVTT step at
+    its config's batch (16 videos x 8 clips x 2 frames at 448^2) on the
+    fused update against the per-leaf one (forced for this measurement
+    only), in turns, no kernel launched. 21c: bench_train_step at 4
+    videos with its component split. 21d: train_convergence at the real
+    shape (BERT-base + R50 at 448^2, bf16) for CONV_STEPS pretraining
+    steps, a SIGTERM after the update two past the first restore bundle
+    and a resume: the resumed step is the SIGTERM's, the state the resumed
+    worker loaded is bit for bit the one saved at the SIGTERM, the loss
+    descends against the ln 2 ITM floor and the resumed curve continues.
+22. the eval tools: bench_retrieval_eval at 4 videos x 1000 captions x
+    16 clips, bf16 and int8, and bench_dataplane on 4 JPEG-sequence
+    videos. Each tool reads the counts just before its timed run and just
+    after: there 12 attention launches a caption minibatch, all tc, 36 wg
+    1x1 convs and one tc stem an encode; the kernels line sums these.
+23. the configs no phase ran before, at their own widths on phase 7's
+    videos: DiDeMo and ANet paragraph retrieval (16 paragraphs of 100
+    tokens against 8 videos, 16 clips x 2 frames at 448^2, S = 149) and
+    TGIF transition (run_video_qa's eval loop and the /videoqa_mc scorer
+    on its graphs, 5 options at 768 px, text 25, S = 169). Counts from 0
+    per run: every attention launch on tc, every 1x1 on wg, every stem
+    on tc; the kernel form against the cuDNN + einsum form,
+    probabilities within PROB_ATOL. Then TRAIN23_STEPS updates of a
+    seeded model at each config's batch and accumulation (DiDeMo 4 x 8
+    videos x 8 clips x 2 frames, ANet 2 x 16 x 4 clips x 2 frames, TGIF
+    transition 16 x 5 options x 1 frame at 768^2): finite losses, no
+    kernel, step ms and peak memory.
 
 Imports nothing of JAX. Needs one card, nvcc and a few minutes.
 """
@@ -4518,6 +4552,514 @@ def phase_graphs(model, cfg, qa_models, tok):
     return graph_launches[:3]
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the training tools
+# ---------------------------------------------------------------------------
+
+# 21a: the group-fused update against the per-leaf one over the full model.
+# Without clipping every leaf bit-equal (the same fp32 expressions in the
+# same order, each product its own op); with clipping the norm sums in
+# another order: the norm within UPDATE_NORM_RTOL, the leaves within
+# UPDATE_LEAF_TOL (the JAX package's own fused-versus-per-leaf tolerance,
+# tests/test_optim.py).
+UPDATE_NORM_RTOL = 1e-6
+UPDATE_LEAF_TOL = dict(rtol=2e-6, atol=1e-7)
+UPDATES = 3              # updates a form in 21a; timed calls a window
+STEP_WINDOW = 3          # 21b: timed steps a window
+CONV_STEPS = 40          # 21d: train_convergence's run on the card
+TOOL_DEADLINE_S = 420    # each tool's own cut-off inside chip_smoke
+
+
+def _update_run(model, meta, oc, grads, update):
+    """UPDATES updates of a copy of ``model``'s parameters on ``grads`` by
+    one form of the update: (params, state, norms)."""
+    from clipbert_tpu_torch.train import optim
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = optim.init_adamw_state(model, meta)
+    norms = []
+    for i, g in enumerate(grads):
+        norms.append(update(params, g, state, meta, oc,
+                            np.float32(1e-4 * (i + 1)), np.float32(5e-5)))
+    return params, state, norms
+
+
+def phase_update_forms(model_cfg):
+    """21a. Returns {form: (CUDA-event ms, host ms, device ms, launches)}
+    of one update of the full retrieval model."""
+    from clipbert_tpu_torch import bench_train_step as bts
+    from clipbert_tpu_torch.train import optim
+    t21 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    model = clipbert.init_clipbert(model_cfg, "retrieval", generator=gen,
+                                   device="cuda")
+    meta = optim.build_group_meta(model, optim.OptimConfig())
+    trainable = {n: p for n, p in model.named_parameters()
+                 if meta[n].trainable}
+    n_elems = sum(p.numel() for p in trainable.values())
+    grads = [{n: torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+              for n, p in trainable.items()} for _ in range(UPDATES)]
+    forms = {"fused": optim.adamw_update,
+             "per-leaf": optim.adamw_update_per_leaf}
+    for clip in (False, True):
+        oc = optim.OptimConfig(grad_norm=1.0 if clip else -1.0)
+        a = _update_run(model, meta, oc, grads, forms["fused"])
+        b = _update_run(model, meta, oc, grads, forms["per-leaf"])
+        norm_gap = max(abs(float(x) / float(y) - 1.0)
+                       for x, y in zip(a[2], b[2]))
+        worst, n_diff = 0.0, 0
+        for mine, theirs in ((a[0], b[0]), (a[1].mu, b[1].mu),
+                             (a[1].nu, b[1].nu)):
+            for n in theirs:
+                if torch.equal(mine[n], theirs[n]):
+                    continue
+                n_diff += 1
+                gap = (mine[n] - theirs[n]).abs()
+                bound = UPDATE_LEAF_TOL["atol"] \
+                    + UPDATE_LEAF_TOL["rtol"] * theirs[n].abs()
+                worst = max(worst, float((gap / bound).max()))
+        print(f"21a update of the full retrieval model ({len(trainable)} "
+              f"trainable leaves, {n_elems} elements), {UPDATES} updates, "
+              f"clipping {'on' if clip else 'off'} (norm "
+              f"{float(b[2][0]):.4f}): fused vs per-leaf, {n_diff} of "
+              f"{3 * len(trainable)} leaves and moments differ, worst "
+              f"{worst:.3f} of the tolerance; norm rel gap {norm_gap:.2e}")
+        if not clip and n_diff:
+            raise AssertionError(f"21a: without clipping {n_diff} leaves of "
+                                 "the fused update differ from per-leaf")
+        if worst > 1.0 or norm_gap > UPDATE_NORM_RTOL:
+            raise AssertionError(f"21a: fused vs per-leaf outside the "
+                                 f"tolerance ({worst}, {norm_gap})")
+        del a, b
+    # timing in turns on the step's own optimizer settings (clipping on)
+    oc = optim.OptimConfig()
+    params = dict(model.named_parameters())
+    state = optim.init_adamw_state(model, meta)
+    g = grads[0]
+    del grads
+    ms = {form: [] for form in forms}
+    host = {form: [] for form in forms}
+
+    def update(form):
+        forms[form](params, g, state, meta, oc, np.float32(1e-5),
+                    np.float32(1e-5))
+
+    for form in ("fused", "per-leaf", "per-leaf", "fused"):
+        update(form)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(UPDATES):
+            update(form)
+        host[form].append((time.perf_counter() - t0) * 1e3 / UPDATES)
+        torch.cuda.synchronize()
+        ms[form].append(_time_ms(functools.partial(update, form), UPDATES))
+    out = {}
+    for form in forms:
+        kern = bts.device_kernels(bts.profiled(
+            functools.partial(update, form), torch.device("cuda")))
+        out[form] = (float(np.mean(ms[form])), float(np.mean(host[form])),
+                     sum(k[1] for k in kern), sum(k[2] for k in kern))
+        print(f"21a one update, {form}: " + " / ".join(
+            f"{t:.3f}" for t in ms[form]) + " ms by CUDA events (in turns), "
+            "host dispatch " + " / ".join(f"{t:.3f}" for t in host[form])
+            + f" ms, device {out[form][2]:.3f} ms in {out[form][3]} kernel "
+            "launches (torch.profiler)")
+    del model, params, state, g
+    torch.cuda.empty_cache()
+    print(f"phase 21a: {time.perf_counter() - t21:.1f} s")
+    return out
+
+
+def phase_step_forms():
+    """21b: the MSRVTT retrieval step at its config's batch (16 videos x 8
+    clips x 2 frames at 448^2, text 20, bf16) on the fused default against
+    the per-leaf update (forced for this measurement only), in turns."""
+    from clipbert_tpu_torch import bench_train_step as bts
+    from clipbert_tpu_torch.train import optim
+    args = bts.parse_args([])
+    device = torch.device("cuda")
+    world = bts.World(args, device, bts.task_settings(args.n_clips))
+    batch = bts.make_batch(np.random.default_rng(0), world.cfg, args, 16,
+                           device)
+    real = optim.adamw_update
+    ms = {"fused": [], "per-leaf": []}
+    losses = []
+    seed = [0]
+    _reset_counts()
+    for form in ("fused", "per-leaf", "per-leaf", "fused"):
+        optim.adamw_update = (real if form == "fused"
+                              else optim.adamw_update_per_leaf)
+        try:
+            def one():
+                _, m = world.step(world.state, batch, seed[0])
+                seed[0] += 1
+                losses.append(m["loss"])
+            one()
+            ms[form].append(float(np.median(
+                [_time_ms(one, 1) for _ in range(STEP_WINDOW)])))
+        finally:
+            optim.adamw_update = real
+    _expect("21b train steps, kernels", sum(_counts()), 0)
+    losses = [float(x) for x in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"21b losses {losses}")
+    print("21b MSRVTT retrieval step (16 videos x 8 clips x 2 frames at "
+          "448^2, bf16), median of " + str(STEP_WINDOW) + " a window, in "
+          "turns: fused " + " / ".join(f"{t:.2f}" for t in ms["fused"])
+          + " ms, per-leaf " + " / ".join(f"{t:.2f}" for t in ms["per-leaf"])
+          + f" ms; losses {losses[0]:.4f} .. {losses[-1]:.4f}")
+    del world, batch
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_train_tools():
+    """21c: bench_train_step at 4 videos with its component split; 21d:
+    train_convergence at the real shape (BERT-base + R50 at 448^2, bf16)
+    for CONV_STEPS steps with a SIGTERM and a resume."""
+    from clipbert_tpu_torch import bench_train_step as bts
+    from clipbert_tpu_torch import train_convergence
+    t0 = time.perf_counter()
+    recs = bts.main(["--sweep", "4:0", "--components_batch", "4",
+                     "--steps", "3", "--warmup", "1",
+                     "--deadline_s", str(TOOL_DEADLINE_S)])
+    step, comp = recs[0], recs[1]["components"]
+    if not step.get("clips_per_sec") or not comp.get("full_step_ms"):
+        raise AssertionError(f"21c bench_train_step: {recs}")
+    print(f"21c bench_train_step in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    conv = train_convergence.main(["--steps", str(CONV_STEPS),
+                                   "--deadline_s", str(TOOL_DEADLINE_S)])
+    print(f"21d train_convergence ({CONV_STEPS} steps, SIGTERM after step "
+          f"{conv['sigterm_at_step']}, resumed at {conv['resumed_step']}) "
+          f"in {time.perf_counter() - t0:.1f} s: first loss "
+          f"{conv['first_loss']:.4f}, at the SIGTERM {conv['loss_at_sigterm']:.4f},"
+          f" first resumed {conv['first_resumed_loss']:.4f}, final "
+          f"{conv['final_loss']:.4f}; restored state matches the saved "
+          f"{conv['restored_state_matches']}, descends {conv['descends']}, "
+          f"resume_continues {conv['resume_continues']}")
+    if not (conv["descends"] and conv["resume_continues"]
+            and conv["resumed_at_sigterm"]):
+        raise AssertionError(f"21d: {conv}")
+    return step, comp, conv
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the eval tools
+# ---------------------------------------------------------------------------
+
+def _expect_tool(what, rec, S, calls, encodes):
+    d = rec["launches"]
+    _expect_qa(what, [d["fused_attention"], d["matmul_bn_act"],
+                      d["fused_stem_pool"], d["fused_attention_tc"],
+                      d["matmul_bn_act_wg"], d["fused_stem_pool_tc"]],
+               S, calls, encodes)
+
+
+def phase_eval_tools():
+    """bench_retrieval_eval at 4 videos x 1000 captions x 16 clips, bf16
+    and int8, and bench_dataplane on 4 JPEG-sequence videos. Each tool
+    reads the counts just before its timed run and just after (``launches``
+    in its record: the main path's, without its warm-up or bench_dataplane's
+    device-unit measurement); returns their sums over the three runs, the
+    six counts of :func:`_counts`, and fused_attention_shard_heads's."""
+    from clipbert_tpu_torch import bench_dataplane, bench_retrieval_eval
+    t22 = time.perf_counter()
+    runs = []
+    for q in (0, 1):
+        rec = bench_retrieval_eval.main([
+            "--n_videos", "4", "--n_captions", "1000", "--quantize", str(q),
+            "--deadline_s", str(TOOL_DEADLINE_S)])
+        g = rec["stage_stats"]["n_groups"]
+        _expect_tool(f"22 bench_retrieval_eval quantize {q}", rec,
+                     _seq_len(20, 448), g * -(-1000 // 64), g)
+        runs.append(rec["launches"])
+    recs = bench_dataplane.main([
+        "--decoder", "jseq", "--n_videos", "4", "--frames", "48",
+        "--deadline_s", str(TOOL_DEADLINE_S)])
+    e2e = recs[2]
+    g = e2e["stage_stats"]["n_groups"]
+    _expect_tool("22 bench_dataplane end to end", e2e, _seq_len(20, 448), g,
+                 g)
+    runs.append(e2e["launches"])
+    keys = ("fused_attention", "matmul_bn_act", "fused_stem_pool",
+            "fused_attention_tc", "matmul_bn_act_wg", "fused_stem_pool_tc")
+    launches = [sum(r[k] for r in runs) for k in keys]
+    shard = sum(r["fused_attention_shard_heads"] for r in runs)
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s; the timed runs' "
+          f"launches: attention {launches[0]} ({launches[3]} tc), "
+          f"matmul_bn_act {launches[1]} ({launches[4]} wg), fused_stem_pool "
+          f"{launches[2]} ({launches[5]} tc), fused_attention_shard_heads "
+          f"{shard}")
+    return launches, shard
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the three configs never run on the card before
+# ---------------------------------------------------------------------------
+
+CFG23_VIDEOS = 8          # videos of phase 7's store scored in 23
+PARAGRAPHS = 16           # paragraphs of >= 100 tokens against them
+TRAIN23_STEPS = 3         # the first warms cuDNN's plans; the rest timed
+CONFIGS23 = (("DiDeMo", "didemo_ret_base_resnet50"),
+             ("ANet", "anet_ret_base_resnet50"))
+
+
+def _cfg23(name):
+    cfg = load_run_config(["--config", os.path.join(
+        ROOT, "configs", f"{name}.json"), "--inference_video_batch_size",
+        "8"])
+    return cfg
+
+
+def _train23(what, cfg, model_cfg, head, ts, batch, accum, units):
+    """TRAIN23_STEPS steps of a seeded model at the config's batch and
+    accumulation; no kernel launched, finite losses; step ms (CUDA events,
+    after the first) and peak memory."""
+    from clipbert_tpu_torch.train import optim, trainer
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    model = clipbert.init_clipbert(model_cfg, head, generator=gen,
+                                   device="cuda")
+    oc = trainer.optim_config_from_run(cfg)
+    meta = optim.build_group_meta(model, oc)
+    ss = trainer.schedule_from_run(cfg, 100, 10)
+    state = steps.init_train_state(model, meta)
+    step = steps.make_train_step(model_cfg, ts, oc, ss, meta,
+                                 accum_steps=accum,
+                                 compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _counts()
+    events, losses = [], []
+    for i in range(TRAIN23_STEPS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, m = step(state, batch, i)
+        e1.record()
+        events.append((e0, e1))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    _expect(f"{what} train steps, kernels",
+            sum(a - b for a, b in zip(_counts(), before)), 0)
+    losses = [float(x) for x in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{what} train losses {losses}")
+    ms = [a.elapsed_time(b) for a, b in events[1:]]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"23 {what} training ({units}, accumulation {accum}, bf16): "
+          f"{TRAIN23_STEPS} updates, losses " + ", ".join(
+              f"{x:.4f}" for x in losses) + "; step " + " / ".join(
+              f"{t:.1f}" for t in ms) + f" ms (CUDA events, after the "
+          f"first); peak memory {peak / 2**30:.2f} GiB")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return float(np.median(ms)), peak
+
+
+def _retrieval_batch(cfg, model_cfg, accum, rng):
+    B, G = cfg.train_batch_size, 1 + cfg.itm_neg_size
+    T, L, img = cfg.train_n_clips * cfg.num_frm, cfg.max_txt_len, \
+        cfg.max_img_size
+    return {
+        "text_input_ids": torch.from_numpy(rng.integers(
+            1, model_cfg.vocab_size, (accum, B * G, L))).cuda(),
+        "text_input_mask": torch.ones(accum, B * G, L, dtype=torch.int64,
+                                      device="cuda"),
+        "visual_inputs": (torch.from_numpy(rng.standard_normal(
+            (accum, B, T, img, img, 3), np.float32)) * 0.5).to(
+            "cuda", torch.bfloat16),
+        "labels": torch.from_numpy(np.tile([1] + [0] * (G - 1),
+                                           (accum, B))).cuda()}
+
+
+def _paragraphs(rng, n):
+    """n paragraphs of 120 words, each a token of the tiny vocabulary:
+    every one fills max_txt_len 100."""
+    return [" ".join(rng.choice(CAPTION_WORDS, size=120)) for _ in range(n)]
+
+
+def phase_configs(model, tok, path):
+    """23: DiDeMo and ANet paragraph retrieval (text 100, S = 149, 16
+    inference clips) and TGIF transition (768 px, text 25, S = 169, 5
+    options) at their configs' widths. Returns the main paths' launches
+    (each run counted from 0)."""
+    t23 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    launches = [0] * 6
+    shard = 0
+    out = {}
+    for what, name in CONFIGS23:
+        cfg = _cfg23(name)
+        cfg.num_labels = 2
+        model_cfg = inject_task_attrs(ModelConfig.from_json(
+            os.path.join(ROOT, cfg.model_config)), cfg)
+        rows = [{"id": i, "vid_id": f"video{i % CFG23_VIDEOS}", "txt": t}
+                for i, t in enumerate(_paragraphs(rng, PARAGRAPHS))]
+        ds = _eval_dataset(rows, tok, path, cfg)
+        S = _seq_len(cfg.max_txt_len, cfg.max_img_size)
+        # ---- the main path: counts from 0, read right after ----
+        _reset_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        kern = inference_retrieval(cfg, model_cfg, model, ds,
+                                   torch.bfloat16, stats)
+        wall = time.perf_counter() - t0
+        d = list(_counts())
+        shard += fa.SHARD_HEADS_LAUNCHES
+        g = stats["n_groups"]
+        n_cap = -(-PARAGRAPHS // cfg.inference_batch_size)
+        _expect_qa(f"23 {what} eval", d, S, g * n_cap, g)
+        launches = [a + b for a, b in zip(launches, d)]
+        ref = inference_retrieval(cfg, model_cfg, model, ds, torch.bfloat16,
+                                  use_kernels=False, fused_attn=False)
+        err = float(np.abs(ref["score_matrix"] - kern["score_matrix"]).max())
+        print(f"23 {what} eval ({CFG23_VIDEOS} videos x {PARAGRAPHS} "
+              f"paragraphs of {cfg.max_txt_len} tokens, "
+              f"{cfg.inference_n_clips} clips x {cfg.num_frm} frames at "
+              f"{cfg.max_img_size}^2, S = {S}, body {_attn_body(S)}): wall "
+              f"{wall:.3f} s; attention {d[0]} ({d[3]} tc), matmul_bn_act "
+              f"{d[1]} ({d[4]} wg), fused_stem_pool {d[2]} ({d[5]} tc); "
+              f"stage stats {_stats_json(stats)}; vs the cuDNN + einsum form"
+              f" max_abs_diff {err:.3e} (bound {PROB_ATOL})")
+        if err > PROB_ATOL or not np.isfinite(kern["score_matrix"]).all():
+            raise AssertionError(f"23 {what}: matrices differ by {err}")
+        if ds.n_fallbacks:
+            raise AssertionError(f"23 {what}: {ds.n_fallbacks} fallbacks")
+        accum = cfg.gradient_accumulation_steps
+        from clipbert_tpu_torch.tasks import run_video_retrieval as rvr
+        out[what] = _train23(
+            what, cfg, model_cfg, "retrieval", rvr.make_task_settings(cfg),
+            _retrieval_batch(cfg, model_cfg, accum, rng), accum,
+            f"{cfg.train_batch_size} videos x {cfg.train_n_clips} clips x "
+            f"{cfg.num_frm} frames at {cfg.max_img_size}^2, text "
+            f"{cfg.max_txt_len}")
+    d, d_shard = _transition23(tok, path, rng, out)
+    launches = [a + b for a, b in zip(launches, d)]
+    shard += d_shard
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s; attention "
+          f"{launches[0]} ({launches[3]} tc), matmul_bn_act {launches[1]} "
+          f"({launches[4]} wg), fused_stem_pool {launches[2]} "
+          f"({launches[5]} tc), fused_attention_shard_heads {shard}")
+    return launches, shard
+
+
+def _transition23(tok, path, rng, out):
+    """TGIF transition: run_video_qa's eval loop on phase 7's videos and
+    the /videoqa_mc scorer at 5 options, each against its cuDNN + einsum
+    form, then training at the config's batch (16 x 5 options x 1 frame
+    at 768^2)."""
+    cfg = run_video_qa.derive_task_attrs(
+        _cfg23("tgif_qa_transition_base_resnet50"), None)
+    mcfg = inject_task_attrs(ModelConfig.from_json(
+        os.path.join(ROOT, cfg.model_config)), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    net = clipbert.init_clipbert(mcfg, "multi_choice", generator=gen,
+                                 device="cuda")
+    clipbert.fold_cnn_bn_scales(net)
+    net.eval().requires_grad_(False)
+    ann = os.path.join(os.path.dirname(path), "qa_transition23.jsonl")
+    with open(ann, "w") as f:
+        for i in range(EVAL_VIDEOS):
+            f.write(json.dumps({
+                "vid_id": f"video{i}", "question": _captions(rng, 1)[0],
+                "question_id": 5000 + i, "answer": int(rng.integers(5)),
+                "options": _captions(rng, 5)}) + "\n")
+    ds = run_video_qa.build_dataset(
+        cfg, run_video_qa.build_groups(cfg, ann, False), tok,
+        store.open_store(path), None, False, cfg.inference_n_clips)
+    ts = run_video_qa.make_task_settings(cfg, cfg.inference_n_clips)
+    dl = common.build_eval_loader(ds, VideoQACollator(tok, cfg.max_txt_len),
+                                  cfg, cfg.inference_batch_size)
+    validate = run_video_qa.build_validate(cfg, ds, dl, torch.bfloat16)
+    S = _seq_len(cfg.max_txt_len, cfg.max_img_size)
+    n_batches = -(-len(ds) // cfg.inference_batch_size)
+
+    def run(form):
+        kept = []
+        step = steps.make_eval_step(
+            mcfg, ts, torch.bfloat16,
+            fused_attn=None if form == "k" else False,
+            use_kernels=form == "k")
+
+        def eval_fn(m, batch):
+            o = step(m, batch)
+            kept.append(o["logits"])
+            return o
+
+        t0 = time.perf_counter()
+        m = validate(net, eval_fn)
+        wall = time.perf_counter() - t0
+        x = torch.cat(kept).float().softmax(-1).cpu().numpy()
+        return m, x, wall
+
+    run("k")                     # warm: cuDNN's plans at these shapes
+    # ---- the main path: counts from 0, read right after ----
+    _reset_counts()
+    mk, pk, wall = run("k")
+    d = list(_counts())
+    _expect_qa("23 TGIF transition eval", d, S, n_batches, n_batches)
+    before = _counts()
+    _, pr, _ = run("r")
+    _expect("23 TGIF transition eval, cuDNN + einsum form",
+            sum(a - b for a, b in zip(_counts(), before)), 0)
+    err = float(np.abs(pk - pr).max())
+    print(f"23 TGIF transition eval ({len(ds)} items, {n_batches} batch(es),"
+          f" 5 options at {cfg.max_img_size} px, text {cfg.max_txt_len}, S = "
+          f"{S}, body {_attn_body(S)}): wall {wall:.3f} s; metrics "
+          f"{json.dumps({k: v for k, v in mk.items() if k != 'results'})}; "
+          f"probabilities vs the cuDNN + einsum form max_abs_diff {err:.3e} "
+          f"(bound {PROB_ATOL})")
+    if err > PROB_ATOL or len(mk["results"]) != len(ds):
+        raise AssertionError(f"23 TGIF transition eval: {err}, "
+                             f"{len(mk['results'])} of {len(ds)} answered")
+    # the /videoqa_mc scorer: graphs (the main path) and the cuDNN + einsum
+    # form, eager
+    kw = dict(num_frm=1, n_clips=1, fps=1, max_img_size=cfg.max_img_size,
+              max_txt_len=cfg.max_txt_len, score_agg_func="mean",
+              device="cuda", compute_dtype=torch.bfloat16)
+    sc = {"k": VideoQAScorer(net, mcfg, tok, "transition", **kw),
+          "r": VideoQAScorer(net, mcfg, tok, "transition", use_kernels=False,
+                             fused_attn=False, cuda_graphs=False, **kw)}
+    for s in sc.values():
+        s.warmup(((240, 320),))
+    frames = rng.integers(0, 256, (1, 240, 320, 3), np.uint8)
+    qs = _captions(rng, 6)
+    probs = {}
+    for form in ("k", "r"):
+        before = _counts()
+        feats = sc[form].encode_frames(frames)
+        probs[form] = np.asarray(sc[form].answer_mc(None, qs[0], qs[1:6],
+                                                    features=feats))
+        dd = [a - b for a, b in zip(_counts(), before)]
+        if form == "k":
+            _expect_qa("23 TGIF transition /videoqa_mc", dd, S, 1, 1)
+            d = [a + b for a, b in zip(d, dd)]
+    err_s = float(np.abs(probs["k"] - probs["r"]).max())
+    print(f"23 TGIF transition /videoqa_mc (5 options, graphs): "
+          f"probabilities {np.round(probs['k'], 4).tolist()}, vs the cuDNN +"
+          f" einsum form max_abs_diff {err_s:.3e} (bound {PROB_ATOL})")
+    if err_s > PROB_ATOL or abs(float(probs["k"].sum()) - 1.0) > 1e-3:
+        raise AssertionError(f"23 /videoqa_mc: {probs}")
+    shard = fa.SHARD_HEADS_LAUNCHES          # since the eval's reset
+    del sc, net
+    torch.cuda.empty_cache()
+    B = cfg.train_batch_size
+    tts = run_video_qa.make_task_settings(cfg, cfg.train_n_clips)
+    batch = {
+        "text_input_ids": torch.from_numpy(rng.integers(
+            1, mcfg.vocab_size, (B * 5, cfg.max_txt_len))).cuda(),
+        "text_input_mask": torch.ones(B * 5, cfg.max_txt_len,
+                                      dtype=torch.int64, device="cuda"),
+        "visual_inputs": (torch.from_numpy(rng.standard_normal(
+            (B, cfg.num_frm, cfg.max_img_size, cfg.max_img_size, 3),
+            np.float32)) * 0.5).to("cuda", torch.bfloat16),
+        "labels": torch.from_numpy(rng.integers(0, 5, B)).cuda()}
+    out["TGIF transition"] = _train23(
+        "TGIF transition", cfg, mcfg, "multi_choice", tts, batch, 1,
+        f"{B} videos x 5 options x {cfg.num_frm} frame at "
+        f"{cfg.max_img_size}^2, text {cfg.max_txt_len}")
+    return d, shard
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -4579,6 +5121,14 @@ def main() -> None:
         print(f"phase 19: {time.perf_counter() - t19:.1f} s")
         graph_launches = phase_graphs(model, model_cfg, qa_models, tok)
         del qa_models
+        torch.cuda.empty_cache()
+        t21 = time.perf_counter()
+        phase_update_forms(model_cfg)
+        phase_step_forms()
+        phase_train_tools()
+        print(f"phase 21: {time.perf_counter() - t21:.1f} s")
+        tools_launches, tools_shard = phase_eval_tools()
+        configs_launches, configs_shard = phase_configs(model, tok, path)
 
     def record(name, source, replaces, n, err, t, design, qa=None):
         out = {"name": name, "route": "cuda",
@@ -4591,7 +5141,9 @@ def main() -> None:
             # launches in the training runs (all in their validations);
             # phase 18: the 2-process training's validations (both ranks),
             # phase 19: the int8 scorers' requests and verify_ckpt; phase
-            # 20: the replayed requests of the graph scorers
+            # 20: the replayed requests of the graph scorers; phase 22: the
+            # eval tools' runs; phase 23: the three configs' evals and
+            # /videoqa_mc requests
             i = ("fused_attention", "matmul_bn_act",
                  "fused_stem_pool").index(name)
             out.update(qa_launches=qa_launches[i], qa_max_abs_err=qa_err[name],
@@ -4603,13 +5155,17 @@ def main() -> None:
                        train18_max_abs_err=train18_err[name],
                        int8_launches=int8_launches[i],
                        verify_ckpt_launches=verify_launches[i],
-                       graph_launches=graph_launches[i])
+                       graph_launches=graph_launches[i],
+                       eval_tools_launches=tools_launches[i],
+                       configs_launches=configs_launches[i])
         else:
             # read in phases 18a-b (every rank's steps and 18b's main path),
-            # 19a-b and 19c; none of them scores tensor-parallel
+            # 19a-b, 19c, 22 and 23; none of them scores tensor-parallel
             out.update(train18_launches=train18_shard,
                        int8_launches=int8_shard,
-                       verify_ckpt_launches=verify_shard)
+                       verify_ckpt_launches=verify_shard,
+                       eval_tools_launches=tools_shard,
+                       configs_launches=configs_shard)
         return out
 
     tc = ("body tc: QK^T and PV on mma.sync m16n8k16 (bf16 in, fp32 "

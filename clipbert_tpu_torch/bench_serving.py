@@ -27,7 +27,6 @@ import argparse
 import json
 import logging
 import os
-import subprocess
 import tempfile
 import threading
 import time
@@ -37,6 +36,7 @@ import numpy as np
 import torch
 
 from clipbert_tpu_torch.data import video
+from clipbert_tpu_torch.utils import tool_run
 
 
 def make_clip(rng: np.random.Generator, frames: int = 96, h: int = 240,
@@ -159,19 +159,6 @@ def sustained_load(scorer, blob: bytes, captions: Sequence[Sequence[str]],
     }
 
 
-def _card(device: torch.device) -> str:
-    """The card's name and power limit as nvidia-smi gives them."""
-    if device.type != "cuda":
-        return "cpu"
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return torch.cuda.get_device_name(device)
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--queries", type=int, default=20)
@@ -194,7 +181,7 @@ def main(argv=None) -> None:
     from clipbert_tpu_torch.serve import RetrievalScorer
 
     device = torch.device(args.device)
-    card = _card(device)
+    card = tool_run.card(device)
     with tempfile.TemporaryDirectory(prefix="serve_bench_") as tmp:
         vpath = os.path.join(tmp, "vocab.txt")
         write_tiny_vocab(vpath, extra_tokens=["a", "person", "does",

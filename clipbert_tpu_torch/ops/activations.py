@@ -16,8 +16,18 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.tanh(F.softplus(x))
+
+
 ACT2FN = {
     "gelu": gelu,
     "relu": torch.relu,
+    "swish": swish,
     "gelu_new": gelu_new,
+    "mish": mish,
 }

@@ -18,15 +18,17 @@ JAX leaf path (ckpt/from_jax.py::jax_name), so the name rules are the JAX
 package's. The update is the JAX per-leaf arithmetic in fp32, in place on
 the parameters: each scalar (lr, lr x wd, the bias correction) is an fp32
 value computed on the host as the JAX update computes it, and each
-elementwise step is one torch op in the JAX expression's order. The tied
-MLM decoder is the word-embedding Parameter: it is one leaf, in the
-embedding's group.
+elementwise step is one torch op in the JAX expression's order, run once
+per optimizer group as a ``torch._foreach_*`` op over the group's leaves
+(the JAX package's group-fused update), or per leaf under tensor
+parallelism. The tied MLM decoder is the word-embedding Parameter: it is
+one leaf, in the embedding's group.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -185,28 +187,78 @@ def _bias_corr(cfg: OptimConfig, step: int):
     return f32(1.0), t
 
 
+class _Ops(NamedTuple):
+    """The elementwise ops of an update: on one leaf (the per-leaf form) or
+    on a list of leaves as one ``torch._foreach_*`` call each (the group-
+    fused form). Each product is its own op (no ``alpha=``, addcmul,
+    addcdiv or lerp, which may contract into an FMA), so both forms round
+    every element alike."""
+    add: Callable
+    mul: Callable
+    div: Callable
+    sqrt: Callable
+    abs: Callable
+    add_: Callable
+    mul_: Callable
+    sub_: Callable
+    maximum_: Callable
+
+
+_LEAF = _Ops(torch.add, torch.mul, torch.div, torch.sqrt, torch.abs,
+             torch.Tensor.add_, torch.Tensor.mul_, torch.Tensor.sub_,
+             lambda a, b: torch.maximum(a, b, out=a))
+_FOREACH = _Ops(torch._foreach_add, torch._foreach_mul, torch._foreach_div,
+                torch._foreach_sqrt, torch._foreach_abs, torch._foreach_add_,
+                torch._foreach_mul_, torch._foreach_sub_,
+                torch._foreach_maximum_)
+
+
 @torch.no_grad()
-def _elementwise_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
-                        v: torch.Tensor, lr, wd: float, cfg: OptimConfig,
-                        bias_corr, t) -> None:
-    """One parameter's update, in place on the fp32 ``p``, ``m`` and
-    ``v``: clip_by_global_norm's output ``g`` in, the expressions of
-    clipbert_tpu/train/optim.py::_elementwise_update in their order."""
+def _elementwise_update(o: _Ops, p, g, m, v, lr, wd: float,
+                        cfg: OptimConfig, bias_corr, t) -> None:
+    """One leaf's update, or one group's through ``o = _FOREACH``, in place
+    on the fp32 ``p``, ``m`` and ``v``: clip_by_global_norm's output ``g``
+    in, the expressions of clipbert_tpu/train/optim.py::_elementwise_update
+    in their order."""
     b1, b2 = cfg.betas
     if cfg.optim in ("adam", "adamax") and wd > 0:
-        g = g + wd * p                  # torch Adam / Adamax: L2 in g
-    m.mul_(b1).add_((1.0 - b1) * g)
+        g = o.add(g, o.mul(p, wd))      # torch Adam / Adamax: L2 in g
+    o.mul_(m, b1)
+    o.add_(m, o.mul(g, 1.0 - b1))
+    o.mul_(v, b2)
     if cfg.optim == "adamax":
-        torch.maximum(v.mul_(b2), g.abs(), out=v)
-        p.sub_(float(f32(lr) / (f32(1.0) - f32(b1) ** t))
-               * (m / (v + cfg.eps)))
+        o.maximum_(v, o.abs(g))
+        step = o.div(m, o.add(v, cfg.eps))
+        o.mul_(step, float(f32(lr) / (f32(1.0) - f32(b1) ** t)))
+        o.sub_(p, step)
         return
-    v.mul_(b2).add_((1.0 - b2) * torch.square(g))
-    p.sub_(float(lr) * (m / (torch.sqrt(v) + cfg.eps) * float(bias_corr)))
+    sq = o.mul(g, g)
+    o.mul_(sq, 1.0 - b2)
+    o.add_(v, sq)
+    del sq
+    den = o.sqrt(v)
+    o.add_(den, cfg.eps)
+    step = o.div(m, den)
+    del den
+    o.mul_(step, float(bias_corr))
+    o.mul_(step, float(lr))
+    o.sub_(p, step)
+    del step
     if cfg.optim == "adamw" and wd > 0:
-        p.sub_(float(f32(lr) * f32(wd)) * p)
+        o.sub_(p, o.mul(p, float(f32(lr) * f32(wd))))
 
 
+def _trainable(params, meta, cfg: OptimConfig):
+    if cfg.optim not in ("adamw", "adam", "adamax"):
+        raise ValueError(f"unknown optim {cfg.optim}")
+    return [n for n in params if meta[n].trainable]
+
+
+def _lr(gm: GroupMeta, lr_transformer, lr_cnn):
+    return f32(lr_cnn if gm.use_cnn_lr else lr_transformer) * f32(gm.lr_mul)
+
+
+@torch.no_grad()
 def adamw_update(params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], state: AdamWState,
                  meta: Dict[str, GroupMeta], cfg: OptimConfig,
@@ -216,17 +268,66 @@ def adamw_update(params: Dict[str, torch.Tensor],
     norm before clipping, over the trainable parameters only (the
     reference clips its 8 groups; frozen parameters have no gradient).
     ``lr_transformer`` / ``lr_cnn`` are the schedules' fp32 values; a
-    parameter's lr is base * lr_mul by its group. Under tensor
-    parallelism ``split`` is (the names of the leaves cut over the model
-    axis, the model group): the norm is the whole model's
-    (:func:`split_global_norm`), and each rank updates its shards."""
-    if cfg.optim not in ("adamw", "adam", "adamax"):
-        raise ValueError(f"unknown optim {cfg.optim}")
-    names = [n for n in params if meta[n].trainable]
-    grads = {n: grads[n].float() for n in names}
+    parameter's lr is base * lr_mul by its group.
+
+    The group-fused form (clipbert_tpu/train/optim.py::_adamw_update_fused):
+    each op of :func:`_elementwise_update` runs once per optimizer group
+    over the group's lists of parameters, gradients and moments, so every
+    element rounds as in :func:`adamw_update_per_leaf`: bit-equal to it
+    without clipping. The norm sums each group's squares over its
+    concatenated gradients, another order than :func:`global_norm`'s; the
+    clipped gradients are the per-leaf ``g * coef``. The moments stay per
+    leaf (the state and the restore bundle keep their schema), and the
+    caller's gradients are not written. Under tensor parallelism ``split``
+    is (the names of the leaves cut over the model axis, the model group)
+    and the step takes the per-leaf form, as the JAX step does."""
+    if split is not None:
+        return adamw_update_per_leaf(params, grads, state, meta, cfg,
+                                     lr_transformer, lr_cnn, split)
+    names = _trainable(params, meta, cfg)
     if not names:
         state.step += 1
         return torch.zeros(())
+    gs = {n: grads[n].float() for n in names}
+    groups: Dict[int, list] = {}
+    for n in names:
+        groups.setdefault(meta[n].group_id, []).append(n)
+    # one sum of squares a group over its concatenated gradients, as the
+    # JAX form sums its group vectors (_foreach_norm accumulates a whole
+    # leaf serially on the CPU: 3e-5 off at 2M elements)
+    norm = torch.sqrt(torch.stack([torch.sum(torch.square(torch.cat(
+        [gs[n].reshape(-1) for n in members])))
+        for members in groups.values()]).sum())
+    if cfg.grad_norm is not None and cfg.grad_norm > 0:
+        coef = torch.clamp(cfg.grad_norm / (norm + 1e-6), max=1.0)
+        gs = dict(zip(names, torch._foreach_mul([gs[n] for n in names],
+                                                coef)))
+    state.step += 1
+    bias_corr, t = _bias_corr(cfg, state.step)
+    for members in groups.values():
+        gm = meta[members[0]]
+        _elementwise_update(
+            _FOREACH, [params[n].data for n in members],
+            [gs[n] for n in members], [state.mu[n] for n in members],
+            [state.nu[n] for n in members],
+            _lr(gm, lr_transformer, lr_cnn), gm.weight_decay, cfg,
+            bias_corr, t)
+    return norm
+
+
+@torch.no_grad()
+def adamw_update_per_leaf(params: Dict[str, torch.Tensor],
+                          grads: Dict[str, torch.Tensor], state: AdamWState,
+                          meta: Dict[str, GroupMeta], cfg: OptimConfig,
+                          lr_transformer, lr_cnn, split=None) -> torch.Tensor:
+    """:func:`adamw_update` one leaf at a time: the reference form, and the
+    tensor-parallel one, where ``split`` makes the norm the whole model's
+    (:func:`split_global_norm`) and each rank updates its shards."""
+    names = _trainable(params, meta, cfg)
+    if not names:
+        state.step += 1
+        return torch.zeros(())
+    grads = {n: grads[n].float() for n in names}
     if cfg.grad_norm is not None and cfg.grad_norm > 0:
         grads, norm = clip_by_global_norm(grads, cfg.grad_norm, split)
     elif split is not None:
@@ -237,8 +338,7 @@ def adamw_update(params: Dict[str, torch.Tensor],
     bias_corr, t = _bias_corr(cfg, state.step)
     for n in names:
         gm = meta[n]
-        lr = f32(lr_cnn if gm.use_cnn_lr else lr_transformer) * f32(gm.lr_mul)
-        _elementwise_update(params[n].data, grads[n], state.mu[n],
-                            state.nu[n], lr, gm.weight_decay, cfg,
-                            bias_corr, t)
+        _elementwise_update(_LEAF, params[n].data, grads[n], state.mu[n],
+                            state.nu[n], _lr(gm, lr_transformer, lr_cnn),
+                            gm.weight_decay, cfg, bias_corr, t)
     return norm

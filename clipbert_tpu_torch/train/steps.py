@@ -457,6 +457,8 @@ def make_train_step(cfg: ModelConfig, ts: TaskSettings, oc: OptimConfig,
         if model_parallel:
             split = (frozenset(n for n in grads if tp_split_dim(n)
                                is not None), mesh.model_group)
+        # the group-fused form unless ``split`` is set, as the JAX step
+        # passes fused=state_shardings is None
         grad_norm = optim.adamw_update(params, grads, state.opt, meta, oc,
                                        lr_t, lr_c, split=split)
         metrics = dict(metrics, loss=loss, grad_norm=grad_norm,

@@ -67,11 +67,16 @@ class TraceWindow:
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.__enter__()
 
-    def maybe_stop(self, step: int) -> None:
+    def maybe_stop(self, step: int):
+        """Close the window once ``step`` reaches its end; returns the
+        stopped profiler then (its events stay readable), else None."""
         if self._prof is not None and step >= self.stop_step:
-            self.close()
+            return self.close()
+        return None
 
-    def close(self) -> None:
+    def close(self):
+        """Stop the profiler and write its trace; returns the profiler, or
+        None when none ran."""
         if self._prof is not None:
             import os
             prof, self._prof = self._prof, None
@@ -80,3 +85,5 @@ class TraceWindow:
             prof.export_chrome_trace(os.path.join(
                 self.log_dir,
                 f"trace_steps_{self.start_step}-{self.stop_step}.json"))
+            return prof
+        return None

@@ -127,6 +127,27 @@ def test_encoder_matches_jax(models, rng_np, fused):
     np.testing.assert_allclose(got.numpy(), _np(want), **BERT_TOL)
 
 
+@pytest.mark.parametrize("act", ["swish", "mish"])
+def test_encoder_hidden_act_matches_jax(models, rng_np, act):
+    """A model config naming ``hidden_act`` swish or mish builds in the
+    port and its encoder matches the JAX package's."""
+    jcfg = JModelConfig(**dict(CFG, hidden_act=act))
+    cfg = ModelConfig(**dict(CFG, hidden_act=act))
+    port = _port(models["params"], cfg)
+    hidden = rng_np.standard_normal((3, 9, 32)).astype(np.float32)
+    mask = np.ones((3, 9), np.float32)
+    mask[:, 6:] = 0.0
+    enc = models["params"]["transformer"]["bert"]["encoder"]
+    want = j_bert.encoder(enc, jnp.asarray(hidden),
+                          j_bert.extended_attention_mask(jnp.asarray(mask)),
+                          jcfg, fused_attn=False)
+    got = bert.encoder(port.transformer.bert.encoder,
+                       torch.from_numpy(hidden),
+                       bert.extended_attention_mask(torch.from_numpy(mask)),
+                       cfg, fused_attn=False)
+    np.testing.assert_allclose(got.numpy(), _np(want), **BERT_TOL)
+
+
 def test_text_embeddings_matches_jax(models, rng_np):
     ids = rng_np.integers(0, 64, (3, 7))
     p = models["params"]["transformer"]["bert"]["embeddings"]

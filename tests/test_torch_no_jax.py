@@ -88,7 +88,12 @@ NEW_MODULES = ["clipbert_tpu_torch.core.mesh",
                "clipbert_tpu_torch.ckpt.torch_import",
                "clipbert_tpu_torch.tasks.run_pretrain",
                "clipbert_tpu_torch.utils.cuda_graphs",
-               "clipbert_tpu_torch.bench_serving"]
+               "clipbert_tpu_torch.bench_serving",
+               "clipbert_tpu_torch.bench_train_step",
+               "clipbert_tpu_torch.bench_retrieval_eval",
+               "clipbert_tpu_torch.bench_dataplane",
+               "clipbert_tpu_torch.train_convergence",
+               "clipbert_tpu_torch.utils.tool_run"]
 _CHECK = _CHECK.replace("NEW_MODULES", repr(NEW_MODULES))
 
 

@@ -20,7 +20,7 @@ from clipbert_tpu.ops.layernorm import layer_norm as j_layer_norm
 from clipbert_tpu.ops.pallas_attention import BLK_B
 from clipbert_tpu.ops.pallas_attention import fused_attention as j_fused
 from clipbert_tpu_torch.ops import fused_attention as fa
-from clipbert_tpu_torch.ops.activations import gelu
+from clipbert_tpu_torch.ops.activations import ACT2FN, gelu
 from clipbert_tpu_torch.ops.attention import SelfAttention, multi_head_attention
 from clipbert_tpu_torch.ops.layernorm import layer_norm
 from clipbert_tpu_torch.ops.linear import dense
@@ -76,6 +76,15 @@ def test_gelu_matches_jax(rng_np):
     x = rng_np.standard_normal((3, 50)).astype(np.float32) * 3
     want = np.asarray(j_act.gelu(jnp.asarray(x)))
     np.testing.assert_allclose(gelu(_t(x)).numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("name", ["swish", "mish", "gelu_new", "relu"])
+def test_activations_match_jax(rng_np, name):
+    """Every entry of ACT2FN, the JAX package's names and functions."""
+    assert set(ACT2FN) == set(j_act.ACT2FN)
+    x = rng_np.standard_normal((3, 50)).astype(np.float32) * 4
+    want = np.asarray(j_act.ACT2FN[name](jnp.asarray(x)))
+    np.testing.assert_allclose(ACT2FN[name](_t(x)).numpy(), want, **TOL)
 
 
 def _qkv_bias(rng_np, B, S, H=4, dh=8):

@@ -136,14 +136,22 @@ def update_world():
     return jcfg, cfg, params, grads
 
 
-@pytest.mark.parametrize("name,fused", [("adamw", False), ("adamw", True),
-                                        ("adam", False), ("adamax", False)])
-def test_update_matches_jax(update_world, name, fused):
+@pytest.mark.parametrize("name,fused,port_fused", [
+    pytest.param("adamw", False, False, id="adamw-False"),
+    pytest.param("adamw", True, False, id="adamw-True"),
+    pytest.param("adam", False, False, id="adam-False"),
+    pytest.param("adamax", False, False, id="adamax-False"),
+    pytest.param("adamw", False, True, id="adamw-False-port_fused"),
+    pytest.param("adamw", True, True, id="adamw-True-port_fused"),
+    pytest.param("adam", True, True, id="adam-True-port_fused"),
+    pytest.param("adamax", True, True, id="adamax-True-port_fused")])
+def test_update_matches_jax(update_world, name, fused, port_fused):
     """Two updates on fixed gradients, clipping on (norm ~ 9 against 1.0):
     parameters, moments and the norm equal the JAX update's, per leaf or
-    group-fused. The frozen leaves' gradients (the BN pairs) are huge and
-    change nothing: the norm excludes them, as the reference clips its 8
-    groups only."""
+    group-fused (``fused``), the port's per leaf or group-fused
+    (``port_fused``). The frozen leaves' gradients (the BN pairs) are huge
+    and change nothing: the norm excludes them, as the reference clips its
+    8 groups only."""
     jcfg, cfg, params, grads = update_world
     kw = dict(optim=name, grad_norm=1.0, weight_decay=0.01,
               cnn_weight_decay=0.02, cnn_lr_mul=3.0,
@@ -176,7 +184,9 @@ def test_update_matches_jax(update_world, name, fused):
         jp, jstate, jnorm = jupdate(jp, jg, jstate, jnp.float32(lr_t),
                                     jnp.float32(lr_c))
         pg = port_values(flat)
-        norm = optim.adamw_update(
+        update = (optim.adamw_update if port_fused
+                  else optim.adamw_update_per_leaf)
+        norm = update(
             port, {n: torch.from_numpy(pg[n]) for n in port}, state, meta,
             oc, lr_t, lr_c)
         np.testing.assert_allclose(norm.numpy(), np.asarray(jnorm),
