@@ -22,6 +22,7 @@ from clipbert_tpu_torch.data.store import open_store
 from clipbert_tpu_torch.data.tokenization import BertTokenizer
 from clipbert_tpu_torch.models import clipbert
 from clipbert_tpu_torch.utils import distributed as dist
+from clipbert_tpu_torch.utils import profiling
 
 LOGGER = logging.getLogger(__name__)
 
@@ -105,6 +106,15 @@ def build_train_loader(dataset, collate_fn, cfg: RunConfig):
     return loader.InfiniteIterator(pf), len(sampler)
 
 
+class _EvalLoader(loader.DataLoader):
+    """The eval loader: each batch's items and collate are a
+    ``loader.batch`` span on the worker thread that builds them."""
+
+    def _load_batch(self, indices):
+        with profiling.span("loader.batch"):
+            return super()._load_batch(indices)
+
+
 def build_eval_loader(dataset, collate_fn, cfg: RunConfig, batch_size=None):
     """This process's share of the dataset in order, ``batch_size`` (or
     cfg.val_batch_size) items a batch, the tail batch short, collated by
@@ -113,8 +123,8 @@ def build_eval_loader(dataset, collate_fn, cfg: RunConfig, batch_size=None):
         len(dataset), batch_size or cfg.val_batch_size, shuffle=False,
         process_index=dist.process_index(),
         process_count=dist.process_count(), drop_last=False)
-    return loader.DataLoader(dataset, sampler, collate_fn,
-                             num_workers=cfg.n_workers)
+    return _EvalLoader(dataset, sampler, collate_fn,
+                       num_workers=cfg.n_workers)
 
 
 def device_batch(batch: Dict, device: torch.device | str, mean=None,
@@ -133,20 +143,23 @@ def device_batch(batch: Dict, device: torch.device | str, mean=None,
     std = std or transforms.IMAGENET_STD_1
     compute_dtype = compute_dtype or torch.bfloat16
     dev, host = {}, {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray) and v.dtype != object:
-            dev[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
-        else:
-            host[k] = v
-    if "visual_src_hw" in dev:
-        if cfg is None:
-            raise ValueError("the device preprocess needs cfg.max_img_size")
-        dev["visual_inputs"] = transforms.resize_pad_normalize(
-            dev["visual_inputs"], dev.pop("visual_src_hw"),
-            cfg.max_img_size, mean, std, compute_dtype)
-    elif "visual_inputs" in dev:
-        dev["visual_inputs"] = transforms.normalize_pixels(
-            dev["visual_inputs"], mean, std, compute_dtype)
+    # pageable copies: the host is blocked for their length
+    with profiling.span("device_batch.copy"):
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray) and v.dtype != object:
+                dev[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            else:
+                host[k] = v
+    if "visual_src_hw" in dev and cfg is None:
+        raise ValueError("the device preprocess needs cfg.max_img_size")
+    with profiling.span("device_batch.preprocess"):
+        if "visual_src_hw" in dev:
+            dev["visual_inputs"] = transforms.resize_pad_normalize(
+                dev["visual_inputs"], dev.pop("visual_src_hw"),
+                cfg.max_img_size, mean, std, compute_dtype)
+        elif "visual_inputs" in dev:
+            dev["visual_inputs"] = transforms.normalize_pixels(
+                dev["visual_inputs"], mean, std, compute_dtype)
     return dev, host
 
 
@@ -167,8 +180,9 @@ class HostFetch:
             self._host, self._done = t, None
 
     def numpy(self) -> np.ndarray:
-        if self._done is not None:
-            self._done.synchronize()
+        with profiling.span("host_fetch.wait"):
+            if self._done is not None:
+                self._done.synchronize()
         return self._host.numpy()
 
 

@@ -39,7 +39,6 @@ from __future__ import annotations
 import logging
 import os
 import threading
-import time
 from contextlib import nullcontext
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
@@ -59,6 +58,7 @@ from clipbert_tpu_torch.models import clipbert
 from clipbert_tpu_torch.tasks import common
 from clipbert_tpu_torch.train import steps, trainer
 from clipbert_tpu_torch.utils import distributed as dist
+from clipbert_tpu_torch.utils import profiling
 from clipbert_tpu_torch.utils.basic import load_jsonl, save_json
 
 LOGGER = logging.getLogger(__name__)
@@ -155,6 +155,14 @@ def _to_device(arr: Optional[np.ndarray], device: torch.device,
         return t.pin_memory().to(device, non_blocking=True)
 
 
+# stage_stats key -> the span of inference_retrieval it sums
+STAGE_SPANS = {"setup_s": "retrieval.setup",
+               "data_wait_s": "retrieval.data_wait",
+               "dispatch_s": "retrieval.dispatch",
+               "fetch_s": "retrieval.fetch",
+               "decode_s": "retrieval.decode", "put_s": "retrieval.put"}
+
+
 def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
                         model: clipbert.ClipBert,
                         eval_ds: VideoRetrievalEvalDataset, compute_dtype,
@@ -177,74 +185,91 @@ def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
     merge through all_gather_objects, so every process returns the whole
     matrix; each video must be scored exactly once.
 
-    ``stage_stats``: optional dict filled with per-stage wall seconds summed
-    over the video loop: ``data_wait_s`` (blocked on decode + H2D from the
-    loader threads), ``dispatch_s`` (preprocess/encode/score launches; the
-    D2H copies of the scores start in the loop), ``fetch_s`` (the deferred
-    post-loop wait for the scores, which waits out whatever compute is still
-    queued), plus ``setup_s``, ``n_groups`` and the loader threads' own
-    ``decode_s`` (dataset + collate) and ``put_s`` (issuing the H2D copy).
+    ``stage_stats``: optional dict filled from the call's spans
+    (utils/profiling.py; ``STAGE_SPANS``) with per-stage wall seconds
+    summed over the video loop: ``data_wait_s`` (blocked on decode + H2D
+    from the loader threads), ``dispatch_s`` (preprocess/encode/score
+    launches; the D2H copies of the scores start in the loop), ``fetch_s``
+    (the deferred post-loop wait for the scores, which waits out whatever
+    compute is still queued), plus ``setup_s``, ``n_groups`` (the dispatch
+    spans), ``n_videos`` and the loader threads' own ``decode_s`` (dataset
+    + collate) and ``put_s`` (issuing the H2D copy). The spans of every
+    thread are collected while the call runs: give one call at a time a
+    ``stage_stats``.
     """
-    t_setup = time.perf_counter()
-    device = next(model.parameters()).device
-    on_cuda = device.type == "cuda"
-    ts = steps.TaskSettings(head_type="retrieval", loss_type=cfg.loss_type,
-                            score_agg_func=cfg.score_agg_func,
-                            train_n_clips=cfg.inference_n_clips)
-    encode_fn = steps.make_visual_encode_step(compute_dtype, use_kernels)
-    prob_fn = steps.make_text_prob_step(model_cfg, ts, compute_dtype,
-                                        fused_attn)
-    mean, std = common.pixel_mean_std(cfg)
+    scope = profiling.collect() if stage_stats is not None \
+        else nullcontext()
+    with scope as spans, profiling.span("retrieval.call"):
+        flat = _score_videos(cfg, model_cfg, model, eval_ds, compute_dtype,
+                             use_kernels, fused_attn)
+    if stage_stats is not None:
+        sums = spans.totals()
+        stage_stats.update({k: sums.get(name, {}).get("s", 0.0)
+                            for k, name in STAGE_SPANS.items()})
+        stage_stats["n_groups"] = sums.get("retrieval.dispatch",
+                                           {}).get("n", 0)
+        stage_stats["n_videos"] = len(range(dist.process_index(),
+                                            len(eval_ds),
+                                            dist.process_count()))
+    return flat
 
-    caps = eval_ds.encode_all_captions()
-    n_caps = caps["text_input_ids"].shape[0]
-    bsz = cfg.inference_batch_size
-    # every minibatch has one fixed shape: the last one repeats its last row
-    # and the extra columns are sliced off by n_valid
-    cap_batches = []
-    for s in range(0, n_caps, bsz):
-        ids = caps["text_input_ids"][s:s + bsz]
-        mask = caps["text_input_mask"][s:s + bsz]
-        n_valid = len(ids)
-        if n_valid < bsz:
-            pad = bsz - n_valid
-            ids = np.concatenate([ids, np.repeat(ids[-1:], pad, 0)])
-            mask = np.concatenate([mask, np.repeat(mask[-1:], pad, 0)])
-        cap_batches.append((torch.from_numpy(ids).to(device),
-                            torch.from_numpy(mask).to(device), n_valid))
 
-    nf = eval_ds.num_frm
-    vb = max(1, cfg.inference_video_batch_size)
-    videos = list(range(dist.process_index(), len(eval_ds),
-                        dist.process_count()))
-    groups = [videos[i:i + vb] for i in range(0, len(videos), vb)]
-    st = {"setup_s": 0.0, "data_wait_s": 0.0, "dispatch_s": 0.0,
-          "fetch_s": 0.0, "n_groups": 0, "decode_s": 0.0, "put_s": 0.0,
-          "n_videos": len(videos)}
-    st_lock = threading.Lock()
+def _score_videos(cfg, model_cfg, model, eval_ds, compute_dtype,
+                  use_kernels, fused_attn):
+    """inference_retrieval's work: its metrics."""
+    with profiling.span("retrieval.setup"):
+        device = next(model.parameters()).device
+        on_cuda = device.type == "cuda"
+        ts = steps.TaskSettings(head_type="retrieval",
+                                loss_type=cfg.loss_type,
+                                score_agg_func=cfg.score_agg_func,
+                                train_n_clips=cfg.inference_n_clips)
+        encode_fn = steps.make_visual_encode_step(compute_dtype, use_kernels)
+        prob_fn = steps.make_text_prob_step(model_cfg, ts, compute_dtype,
+                                            fused_attn)
+        mean, std = common.pixel_mean_std(cfg)
+
+        caps = eval_ds.encode_all_captions()
+        n_caps = caps["text_input_ids"].shape[0]
+        bsz = cfg.inference_batch_size
+        # every minibatch has one fixed shape: the last one repeats its last
+        # row and the extra columns are sliced off by n_valid
+        cap_batches = []
+        for s in range(0, n_caps, bsz):
+            ids = caps["text_input_ids"][s:s + bsz]
+            mask = caps["text_input_mask"][s:s + bsz]
+            n_valid = len(ids)
+            if n_valid < bsz:
+                pad = bsz - n_valid
+                ids = np.concatenate([ids, np.repeat(ids[-1:], pad, 0)])
+                mask = np.concatenate([mask, np.repeat(mask[-1:], pad, 0)])
+            cap_batches.append((torch.from_numpy(ids).to(device),
+                                torch.from_numpy(mask).to(device), n_valid))
+
+        nf = eval_ds.num_frm
+        vb = max(1, cfg.inference_video_batch_size)
+        videos = list(range(dist.process_index(), len(eval_ds),
+                            dist.process_count()))
+        groups = [videos[i:i + vb] for i in range(0, len(videos), vb)]
     local = threading.local()
 
     def load(group):
-        t0 = time.perf_counter()
-        items = [eval_ds[v] for v in group]
-        items += [items[-1]] * (vb - len(group))   # tail pad, no re-decode
-        vis, src_hw = transforms.collate_visual(items)
-        t1 = time.perf_counter()
+        with profiling.span("retrieval.decode"):
+            items = [eval_ds[v] for v in group]
+            items += [items[-1]] * (vb - len(group))   # tail pad, no re-decode
+            vis, src_hw = transforms.collate_visual(items)
         stream, ready = None, None
-        if on_cuda:
-            if not hasattr(local, "stream"):
-                local.stream = torch.cuda.Stream(device)
-            stream = local.stream
-        with torch.cuda.device(device) if on_cuda else nullcontext():
-            vis = _to_device(vis, device, stream)
-            src_hw = _to_device(src_hw, device, stream)
+        with profiling.span("retrieval.put"):
             if on_cuda:
-                ready = torch.cuda.Event()
-                ready.record(stream)
-        t2 = time.perf_counter()
-        with st_lock:      # loader threads accumulate concurrently
-            st["decode_s"] += t1 - t0
-            st["put_s"] += t2 - t1
+                if not hasattr(local, "stream"):
+                    local.stream = torch.cuda.Stream(device)
+                stream = local.stream
+            with torch.cuda.device(device) if on_cuda else nullcontext():
+                vis = _to_device(vis, device, stream)
+                src_hw = _to_device(src_hw, device, stream)
+                if on_cuda:
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
         return group, vis, src_hw, ready
 
     # Decode concurrency is clamped to the cores: decode is CPU-bound (the
@@ -254,55 +279,49 @@ def inference_retrieval(cfg: RunConfig, model_cfg: ModelConfig,
     n_threads = max(1, min(cfg.n_workers, os.cpu_count() or 1))
     rows = []      # (video_idx, scores (n_caps,))
     pending = []   # (group, common.HostFetch of its scores), read after the loop
-    st["setup_s"] = time.perf_counter() - t_setup
     with ThreadPoolExecutor(n_threads) as pool:
         batches = pool.map(load, groups)
         while True:
-            t0 = time.perf_counter()
-            nxt = next(batches, None)
-            st["data_wait_s"] += time.perf_counter() - t0
+            with profiling.span("retrieval.data_wait"):
+                nxt = next(batches, None)
             if nxt is None:
                 break
-            group, vis, src_hw, ready = nxt
-            st["n_groups"] += 1
-            t0 = time.perf_counter()
-            if ready is not None:
-                main = torch.cuda.current_stream(device)
-                main.wait_event(ready)
-                for t in (vis, src_hw):
-                    if t is not None:
-                        t.record_stream(main)
-            # vis: (vb, n_clips*nf, H, W, 3) uint8 -> (vb*nc, nf, S, S, 3)
-            nc = vis.shape[1] // nf
-            if src_hw is not None:
-                pixels = transforms.resize_pad_normalize(
-                    vis, src_hw, cfg.max_img_size, mean, std, compute_dtype)
-            else:
-                pixels = transforms.normalize_pixels(vis, mean, std,
-                                                     compute_dtype)
-            pixels = pixels.reshape((vb * nc, nf) + pixels.shape[2:])
-            feats = encode_fn(model, pixels)       # once per video
-            del vis, src_hw, pixels
-            feats = feats.reshape((vb, nc) + feats.shape[1:])
-            scores_dev = torch.cat([prob_fn(model, feats, ids, mask)
-                                    [:, :n_valid]
-                                    for ids, mask, n_valid in cap_batches],
-                                   dim=1)
-            del feats
-            # start the D2H copy without blocking the loop: the next group's
-            # launches overlap this group's compute, and the deferred fetch
-            # below finds the bytes already on the host
-            pending.append((group, common.HostFetch(scores_dev)))
-            del scores_dev
-            st["dispatch_s"] += time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for group, fetch in pending:
-        scores = fetch.numpy().astype(np.float32)
-        for j, vidx in enumerate(group):
-            rows.append((vidx, scores[j]))
-    st["fetch_s"] += time.perf_counter() - t0
-    if stage_stats is not None:
-        stage_stats.update(st)
+            with profiling.span("retrieval.dispatch"):
+                group, vis, src_hw, ready = nxt
+                if ready is not None:
+                    main = torch.cuda.current_stream(device)
+                    main.wait_event(ready)
+                    for t in (vis, src_hw):
+                        if t is not None:
+                            t.record_stream(main)
+                # vis: (vb, n_clips*nf, H, W, 3) uint8 -> (vb*nc, nf, S, S, 3)
+                nc = vis.shape[1] // nf
+                if src_hw is not None:
+                    pixels = transforms.resize_pad_normalize(
+                        vis, src_hw, cfg.max_img_size, mean, std,
+                        compute_dtype)
+                else:
+                    pixels = transforms.normalize_pixels(vis, mean, std,
+                                                         compute_dtype)
+                pixels = pixels.reshape((vb * nc, nf) + pixels.shape[2:])
+                feats = encode_fn(model, pixels)       # once per video
+                del vis, src_hw, pixels
+                feats = feats.reshape((vb, nc) + feats.shape[1:])
+                scores_dev = torch.cat([prob_fn(model, feats, ids, mask)
+                                        [:, :n_valid]
+                                        for ids, mask, n_valid in cap_batches],
+                                       dim=1)
+                del feats
+                # start the D2H copy without blocking the loop: the next
+                # group's launches overlap this group's compute, and the
+                # deferred fetch below finds the bytes already on the host
+                pending.append((group, common.HostFetch(scores_dev)))
+                del scores_dev
+    with profiling.span("retrieval.fetch"):
+        for group, fetch in pending:
+            scores = fetch.numpy().astype(np.float32)
+            for j, vidx in enumerate(group):
+                rows.append((vidx, scores[j]))
 
     rows = sorted((r for part in dist.all_gather_objects(rows)
                    for r in part), key=lambda r: r[0])

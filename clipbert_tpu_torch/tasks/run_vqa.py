@@ -38,6 +38,7 @@ from clipbert_tpu_torch.models import clipbert
 from clipbert_tpu_torch.tasks import common
 from clipbert_tpu_torch.train import steps, trainer
 from clipbert_tpu_torch.utils import distributed as dist
+from clipbert_tpu_torch.utils import profiling
 from clipbert_tpu_torch.utils.basic import load_json, load_jsonl, save_json
 
 LOGGER = logging.getLogger(__name__)
@@ -89,17 +90,24 @@ def build_validate(cfg: RunConfig, val_ds: VQADataset, val_loader,
                                 "answer": val_ds.label2ans[int(p)]})
 
         pending = []
-        for batch in val_loader:
-            dev, host = common.device_batch(batch, device, cfg=cfg,
-                                            compute_dtype=compute_dtype)
-            out = eval_fn(model, dev)
-            pending.append((host["question_ids"],
-                            common.HostFetch(out["logits"])))
-            common.drain_pending(pending, convert)
-        common.drain_pending(pending, convert, limit=0)
-        gathered = [r for rank in dist.all_gather_objects(results)
-                    for r in rank]
-        metrics = val_ds.evaluate_vqa(gathered)
+        with profiling.span("vqa.validate"):
+            batches = iter(val_loader)
+            while True:
+                with profiling.span("vqa.data_wait"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                dev, host = common.device_batch(batch, device, cfg=cfg,
+                                                compute_dtype=compute_dtype)
+                with profiling.span("vqa.dispatch"):
+                    out = eval_fn(model, dev)
+                    pending.append((host["question_ids"],
+                                    common.HostFetch(out["logits"])))
+                common.drain_pending(pending, convert)
+            common.drain_pending(pending, convert, limit=0)
+            gathered = [r for rank in dist.all_gather_objects(results)
+                        for r in rank]
+            metrics = val_ds.evaluate_vqa(gathered)
         metrics["results"] = gathered
         return metrics
 

@@ -3,16 +3,39 @@
 
 The reference has none (only coarse wall-clock logs around validation).
 A per-step wall-clock timer with percentile summaries (StepTimer, copied),
-and a ``torch.profiler`` trace over a step window (TraceWindow, in place of
-``jax.profiler``), written as a Chrome trace.
+a ``torch.profiler`` trace over a step window (TraceWindow, in place of
+``jax.profiler``), written as a Chrome trace, and the port's one span
+facility (``span``, ``collect``, ``totals``).
+
+A span names a stretch of one thread's work at a loop boundary::
+
+    with profiling.span("vqa.data_wait"):
+        batch = next(it, None)
+
+Unless a ``torch.profiler`` is recording or a ``collect()`` scope is open
+it is off: a shared no-op that reads two flags, no clock, and records
+nothing. While a profiler records, each span is also a record-function
+range of its name on the profiler's timeline (the profiler's Chrome trace
+is the export) and is summed into ``totals()``; inside ``collect()`` the
+scope gets every span closed while it was open, from every thread. A
+span's times are stamped inside its range on the clock the profiler's
+CPU events carry (``time.time_ns``: the profiler converts its own clock
+to the Unix epoch), so the two agree.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch.autograd.profiler as _torch_profiler
+# record_function's fast form: a range of a few us, recorded as a host op.
+# record_function itself is a user annotation, which the profiler also
+# draws on the GPU timeline over the kernels launched inside it, where a
+# trace's device-busy union would count it as device work.
+from torch._C._profiler import _RecordFunctionFast as _Range
 
 
 class StepTimer:
@@ -87,3 +110,136 @@ class TraceWindow:
                 f"trace_steps_{self.start_step}-{self.stop_step}.json"))
             return prof
         return None
+
+
+# -- spans ------------------------------------------------------------------
+
+_CLOCK = time.time_ns
+_LOCK = threading.Lock()     # guards _TOTALS, _COLLECTORS and their sums
+_TLS = threading.local()     # .stack: the open spans of this thread
+_COLLECTORS: List["collect"] = []
+_collecting = False          # any collect() open
+# name -> [ns, count, self ns] of the spans begun while a profiler recorded
+_TOTALS: Dict[str, List[int]] = {}
+
+
+class Span:
+    """One span: its name, start and end (ns, the profiler's clock), its
+    parent (the span open around it on its thread, or None) and the ns its
+    children took."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "child_ns",
+                 "profiled", "_rf")
+
+    def __init__(self, name: str, profiled: bool):
+        self.name = name
+        self.profiled = profiled
+        self.child_ns = 0
+        self.end_ns = 0
+        self._rf = None
+
+    @property
+    def ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+    def __enter__(self) -> "Span":
+        stack = getattr(_TLS, "stack", None)
+        if stack is None:
+            stack = _TLS.stack = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self)
+        if self.profiled:
+            self._rf = _Range(self.name)
+            self._rf.__enter__()
+        self.start_ns = _CLOCK()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = _CLOCK()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
+        _TLS.stack.pop()
+        ns = self.end_ns - self.start_ns
+        if self.parent is not None:
+            self.parent.child_ns += ns
+        with _LOCK:
+            if self.profiled:
+                _add(_TOTALS, self)
+            for c in _COLLECTORS:
+                _add(c.acc, self)
+        return False
+
+
+class _Off:
+    """The span of a process that collects none: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """A context manager timing the block as span ``name`` where a
+    profiler records or a ``collect()`` is open; else a shared no-op that
+    reads no clock and allocates nothing."""
+    profiled = _torch_profiler._is_profiler_enabled
+    if not (profiled or _collecting):
+        return _OFF
+    return Span(name, profiled)
+
+
+def _add(acc: Dict[str, List[int]], s: Span) -> None:
+    a = acc.get(s.name)
+    if a is None:
+        a = acc[s.name] = [0, 0, 0]
+    a[0] += s.ns
+    a[1] += 1
+    a[2] += s.ns - s.child_ns
+
+
+def _as_seconds(acc: Dict[str, List[int]]) -> Dict[str, Dict[str, float]]:
+    return {k: {"s": v[0] / 1e9, "n": v[1], "self_s": v[2] / 1e9}
+            for k, v in acc.items()}
+
+
+def totals() -> Dict[str, Dict[str, float]]:
+    """{span name: {"s": seconds, "n": count, "self_s": seconds less its
+    children's}} over every span begun while a profiler recorded, since
+    the process started (in the benchmark's traced run: its window)."""
+    with _LOCK:
+        return _as_seconds(_TOTALS)
+
+
+class collect:
+    """``with collect() as c:`` ... ``c.totals()``: ``totals()``'s
+    aggregates over the spans of every thread closed while the scope was
+    open, with or without a profiler."""
+
+    def __init__(self):
+        self.acc: Dict[str, List[int]] = {}
+
+    def __enter__(self) -> "collect":
+        global _collecting
+        with _LOCK:
+            _COLLECTORS.append(self)
+            _collecting = True
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        global _collecting
+        with _LOCK:
+            _COLLECTORS.remove(self)
+            _collecting = bool(_COLLECTORS)
+        return False
+
+    def totals(self) -> Dict[str, Dict[str, float]]:
+        with _LOCK:
+            return _as_seconds(self.acc)
