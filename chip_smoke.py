@@ -288,6 +288,18 @@ fails or outlives its phase's timeout fails the script.
     videos x 8 clips x 2 frames, ANet 2 x 16 x 4 clips x 2 frames, TGIF
     transition 16 x 5 options x 1 frame at 768^2): finite losses, no
     kernel, step ms and peak memory.
+24. (run after phase 4) ops/linear.py::dense through matmul_bn_act's
+    kernel: at BERT's four products a layer (K, N) = (768, 2304), (768,
+    768), (768, 3072), (3072, 768), for the retrieval eval's 8192 x 69
+    rows and VQA's 32 x 164, the routed dense against the unfused formula
+    (dense_reference) within DENSE_ULPS bf16 ulps plus CNN_FP32_REL of the
+    products' magnitudes, the counters showing one wg launch; then the
+    routed dense, the unfused formula, cuBLAS's bf16 product alone and
+    the bound, timed in turns as CUDA graph replays, and the wg body's
+    tile widths 128 and 256 in turns (A, B, B, A). Phase 7's eval also
+    runs with dense forced to the unfused formula, its matrix within
+    PROB_ATOL of the routed one's. Everywhere else, the matmul_bn_act
+    counts are the CNN's 1x1 convs' (_counts); dense's are counted apart.
 
 Imports nothing of JAX. Needs one card, nvcc and a few minutes.
 """
@@ -326,6 +338,7 @@ from clipbert_tpu_torch.models import bert, clipbert, resnet
 from clipbert_tpu_torch.ops import _build
 from clipbert_tpu_torch.ops import fused_attention as fa
 from clipbert_tpu_torch.ops import fused_stem_pool as fsp
+from clipbert_tpu_torch.ops import linear as lin
 from clipbert_tpu_torch.ops import matmul_bn_act as mba
 from clipbert_tpu_torch.ops.linear import mm_f32
 from clipbert_tpu_torch.parallel import shard_model
@@ -386,6 +399,17 @@ PROB_ATOL = 2e-2
 # they may differ by one bf16 ulp of the result (<= 2**-7 |plain|) on top.
 CNN_FP32_REL = 1e-5
 BF16_ULP = 2.0 ** -7
+# dense routed through matmul_bn_act against the unfused formula: both add
+# the fp32 bias to fp32 sums of the same bf16 products, taken in another
+# order (wgmma's K steps vs cuBLAS's), and round once to bf16; an fp32 sum
+# that differs in its last bits can land the rounding on the other side of
+# a tie, one bf16 ulp (<= 2**-7 |plain|) on top of CNN_FP32_REL
+DENSE_ULPS = 1
+# BERT's four products a layer: (K, N) of the QKV, attention-output, FFN-up
+# and FFN-down projections; and the rows of a retrieval eval dispatch (8192
+# sequences of S = 69) and of a VQA batch (32 of S = 164)
+DENSE_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+DENSE_ROWS = (8192 * 69, 32 * 164)
 # The CNN's kernel form against its cuDNN form on the same pixels: grid
 # features compared as ||kernel - cuDNN|| / ||cuDNN|| over the whole batch.
 # The forms round bf16 at other points, about one ulp per layer through 53
@@ -950,6 +974,79 @@ def _mba_sums(launches, times, what):
     return sums
 
 
+def _dense_check(x, w, b, what):
+    """The routed dense against the unfused formula, 65536 rows at a time
+    (the bound's fp32 magnitudes of a whole (565248, 3072) product would
+    take 7 GB each); returns the max abs error."""
+    before = _dense_counts()
+    out = lin.dense(x, w, b)
+    torch.cuda.synchronize()
+    ran = tuple(a - c for a, c in zip(_dense_counts(), before))
+    if ran != (1, 1, 0):
+        raise AssertionError(f"{what}: dense's counters moved {ran}, not "
+                             "one launch on the wgmma body")
+    ref = lin.dense_reference(x, w, b)
+    err, share = 0.0, 0.0
+    for i in range(0, x.shape[0], 65536):
+        o, r = out[i:i + 65536].float(), ref[i:i + 65536].float()
+        mag = x[i:i + 65536].float().abs() @ w.float().abs().t() + b.abs()
+        bound = CNN_FP32_REL * mag + DENSE_ULPS * BF16_ULP * r.abs()
+        diff = (o - r).abs()
+        err = max(err, diff.max().item())
+        share = max(share, (diff / bound.clamp_min(1e-30)).max().item())
+    print(f"dense via matmul_bn_act vs unfused {what}: max_abs_err "
+          f"{err:.3e} (worst share of bound {share:.3f}) "
+          f"{'ok' if share <= 1 else 'FAIL'}")
+    if share > 1:
+        raise AssertionError(f"{what}: the routed dense disagrees with the "
+                             f"unfused formula by {err}")
+    return err
+
+
+def phase_dense(gen):
+    """Phase 24. Returns the worst error and {(R, K, N): timing keys}."""
+    worst, times = 0.0, {}
+    for R in DENSE_ROWS:
+        for K, N in DENSE_SHAPES:
+            what = f"R={R} K={K} N={N}"
+            x = torch.randn(R, K, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            w = (torch.randn(N, K, device="cuda", generator=gen)
+                 * K ** -0.5).to(torch.bfloat16)
+            b = torch.randn(N, device="cuda", generator=gen)
+            worst = max(worst, _dense_check(x, w, b, what))
+            iters = 4 if R > 100000 else 20
+            ms = _in_turns(lambda: lin.dense(x, w, b),
+                           lambda: lin.dense_reference(x, w, b), iters,
+                           lambda: torch.mm(x, w.t()), graph=True)
+            tiles = {128: [], 256: []}
+            for t in (128, 256, 256, 128):
+                tiles[t].append(_time_ms(
+                    lambda: mba._launch(x, w, None, b, None, False,
+                                        (R, 1, 1), 1, tile_n=t),
+                    iters, graph=True))
+            bound = _bound_ms(2 * R * K * N,
+                              (R * K + K * N + R * N) * 2 + N * 4)
+            t = _timing(ms, bound)
+            t["tile_ms"] = {n: sum(v) / len(v) for n, v in tiles.items()}
+            times[(R, K, N)] = t
+            plan = mba._plan(R, K, N, 1, R, 1, 1, torch.bfloat16, True,
+                             mba._n_sms(0))
+            print(f"time bf16 dense {what} (device time, CUDA graph of "
+                  f"{iters} calls): kernel (wg BN {plan.tile_n}) "
+                  f"{_windows(ms, 'kernel')} ms "
+                  f"({2 * R * K * N / t['ms'] / 1e9:.1f} TFLOP/s, "
+                  f"{bound[0] / t['ms']:.1%} of bound), unfused "
+                  f"{_windows(ms, 'plain')} ms, cuBLAS bf16 product alone "
+                  f"{_windows(ms, 'library')} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}); wg tile widths in turns: " + ", ".join(
+                      f"BN {n} " + " / ".join(f"{v:.4f}" for v in vs)
+                      for n, vs in tiles.items()) + " ms")
+            del x, w, b
+            torch.cuda.empty_cache()
+    return worst, times
+
+
 def _stem_inputs(B, H, W, dtype, gen):
     # caffe-normalized pixels reach +-130; He-normal stem weights
     x = (torch.randn(B, H, W, 3, device="cuda", generator=gen) * 60).to(dtype)
@@ -1138,14 +1235,25 @@ def _captions(rng, n):
 def _reset_counts():
     fa.LAUNCHES = fa.TC_LAUNCHES = fa.SHARD_HEADS_LAUNCHES = 0
     mba.LAUNCHES = mba.WG_LAUNCHES = fsp.LAUNCHES = fsp.TC_LAUNCHES = 0
+    lin.DENSE_KERNEL_CALLS = lin.DENSE_WG_CALLS = lin.DENSE_PLAIN_CALLS = 0
 
 
 def _counts():
     """(attention, matmul_bn_act, fused_stem_pool, attention on the
     tensor-core body, matmul_bn_act on the wgmma body, fused_stem_pool on
-    the tensor-core body) launches."""
-    return (fa.LAUNCHES, mba.LAUNCHES, fsp.LAUNCHES, fa.TC_LAUNCHES,
-            mba.WG_LAUNCHES, fsp.TC_LAUNCHES)
+    the tensor-core body) launches. matmul_bn_act's are the CNN's 1x1
+    convs': the launches ops/linear.py::dense made for BERT's and the
+    heads' products are left out (:func:`_dense_counts` has them)."""
+    return (fa.LAUNCHES, mba.LAUNCHES - lin.DENSE_KERNEL_CALLS, fsp.LAUNCHES,
+            fa.TC_LAUNCHES, mba.WG_LAUNCHES - lin.DENSE_WG_CALLS,
+            fsp.TC_LAUNCHES)
+
+
+def _dense_counts():
+    """ops/linear.py::dense's CUDA calls: (kernel launches, of them on the
+    wgmma body, unfused)."""
+    return (lin.DENSE_KERNEL_CALLS, lin.DENSE_WG_CALLS,
+            lin.DENSE_PLAIN_CALLS)
 
 
 def _expect(what, got, want):
@@ -1345,6 +1453,18 @@ def _check_eval_cnn_forms(model, model_cfg, cfg, ds):
                            ids, mask).cpu().numpy())
 
 
+@contextlib.contextmanager
+def _dense_unfused():
+    """ops/linear.py::dense on the unfused formula for every input: the
+    comparison of phase 7's eval with and without the routed dense."""
+    real = lin.routes_to_kernel
+    lin.routes_to_kernel = lambda *facts: False
+    try:
+        yield
+    finally:
+        lin.routes_to_kernel = real
+
+
 def _eval_dataset(rows, tok, path, cfg):
     return VideoRetrievalEvalDataset(
         rows, tok, store.open_store(path), fps=cfg.fps, num_frm=cfg.num_frm,
@@ -1372,18 +1492,25 @@ def phase_eval(model, model_cfg, tok, cfg, d):
     results, walls = {}, {}
     path, rows = _eval_store(d, rng)
     n_cap_batches = -(-EVAL_CAPTIONS // cfg.inference_batch_size)
-    for form in ("kernels", "cudnn"):
+    for form in ("kernels", "cudnn", "dense unfused"):
         ds = _eval_dataset(rows, tok, path, cfg)
         stats = {}
         if form == "kernels":
             # ---- the main path: counts from 0, read right after ----
             _reset_counts()
         t0 = time.perf_counter()
-        m = inference_retrieval(cfg, model_cfg, model, ds, torch.bfloat16,
-                                stats, use_kernels=form == "kernels")
+        with (_dense_unfused() if form == "dense unfused"
+              else contextlib.nullcontext()):
+            m = inference_retrieval(cfg, model_cfg, model, ds,
+                                    torch.bfloat16, stats,
+                                    use_kernels=form != "cudnn")
         walls[form] = time.perf_counter() - t0
         if form == "kernels":
             launches = _counts()
+            dense = _dense_counts()
+            _expect("eval, dense unfused", dense[2], 0)
+            print(f"eval path: dense launched matmul_bn_act {dense[0]} "
+                  f"times ({dense[1]} on the wgmma body)")
             g = stats["n_groups"]
             _expect("eval, attention", launches[0],
                     model_cfg.num_hidden_layers * g * n_cap_batches)
@@ -1410,11 +1537,13 @@ def phase_eval(model, model_cfg, tok, cfg, d):
         print(f"eval, {form} form: R@K {json.dumps(recall)}")
         results[form] = m["score_matrix"]
     _check_eval_cnn_forms(model, model_cfg, cfg, ds)
-    err = float(np.abs(results["kernels"] - results["cudnn"]).max())
-    print(f"eval score matrices, kernel form vs cuDNN form: max_abs_diff "
-          f"{err:.3e} (bound {PROB_ATOL})")
-    if err > PROB_ATOL:
-        raise AssertionError(f"eval score matrices disagree by {err}")
+    for other in ("cudnn", "dense unfused"):
+        err = float(np.abs(results["kernels"] - results[other]).max())
+        print(f"eval score matrices, kernel form vs {other} form: "
+              f"max_abs_diff {err:.3e} (bound {PROB_ATOL})")
+        if err > PROB_ATOL:
+            raise AssertionError(f"eval score matrices, kernel form vs "
+                                 f"{other} form, disagree by {err}")
     return launches, results["kernels"], walls["kernels"], path, rows
 
 
@@ -1851,9 +1980,16 @@ def phase_multiprocess_eval(cfg, run_cfg, tok, path, rows, single,
 @contextlib.contextmanager
 def _forced_body(module, body: str):
     """The kernel of ``module`` (fa, mba or fsp) forced to ``body``: for the
-    comparisons of its bodies only; nothing else runs forced."""
+    comparisons of its bodies only; nothing else runs forced. For mba, the
+    CNN's 1x1 convs (NHWC inputs) alone: ops/linear.py::dense's products
+    (2-D inputs, some of which no wg body takes) keep their plans."""
     real = module._launch
-    module._launch = functools.partial(real, body=body)
+    forced = functools.partial(real, body=body)
+
+    def launch(x, *args, **kwargs):
+        run = real if module is mba and x.dim() != 4 else forced
+        return run(x, *args, **kwargs)
+    module._launch = launch
     try:
         yield
     finally:
@@ -3369,7 +3505,8 @@ def _check_shapes17(shapes, gen, err):
     """Each kernel against its plain version at every shape the training
     validations launched it at (``shapes``, from _shape_recorder), on the
     body the validation ran: tc attention (S = 149-174), wg 1x1 convs and
-    the tc stem for bf16. ``err`` collects each kernel's worst error."""
+    the tc stem for bf16, and matmul_bn_act at dense's products. ``err``
+    collects each kernel's worst error."""
     for kind, key in sorted(shapes, key=str):
         if kind == "fused_attention":
             B, S, H, dh, dtype = key
@@ -3377,7 +3514,11 @@ def _check_shapes17(shapes, gen, err):
                                  "merged-qkv views", gen)
         elif kind == "matmul_bn_act":
             e, body = _mba_check(*key, gen)
-            if key[-1] == torch.bfloat16 and body != "wg":
+            # ops/linear.py::dense's products come as (R, 1, 1) pixels and
+            # take the mma body where K or N is off a multiple of 8 (the
+            # heads' 2 or 3129 outputs); the CNN's 1x1 convs never do
+            if key[-1] == torch.bfloat16 and body != "wg" and \
+                    key[1:3] != (1, 1):
                 raise AssertionError(f"R50 1x1 {key} ran {body}")
         else:
             e, body = _stem_check(*key, gen)
@@ -4047,7 +4188,6 @@ QUANT_ATOL = 0.08        # tests/test_int8.py: int8 against fp probabilities
 def _int_mm_recorder(calls):
     """ops/linear.py::int_mm that keeps, per distinct (M, K, N), its first
     operands and result (on the CPU)."""
-    from clipbert_tpu_torch.ops import linear as lin
     real = lin.int_mm
 
     def run(a, w):
@@ -4063,7 +4203,6 @@ def _quant_bytes(model, qmodel):
     """(the floating model's bytes in the denses quantize_scoring_params
     converts, as resident fp32 and as bf16; the quantized model's bytes in
     them: int8 weights, fp32 scales and biases)."""
-    from clipbert_tpu_torch.ops import linear as lin
     q = {n for n, m in qmodel.named_modules()
          if isinstance(m, lin.QuantLinear)}
     mods = dict(model.named_modules())
@@ -4099,7 +4238,6 @@ def _scorer_turns(what, scorers, request, sizes, n_rep):
 def _check_int8_products(what, calls):
     """The card's int8 products against the CPU's on the same operands, bit
     for bit; returns the shapes and which of them padded."""
-    from clipbert_tpu_torch.ops import linear as lin
     padded = []
     for (M, K, N), (a, w, out) in sorted(calls.items()):
         if not torch.equal(out, lin.int_mm(a, w)):
@@ -4115,7 +4253,6 @@ def phase_int8(model, cfg, tok):
     matmul_bn_act, fused_stem_pool) and its fused_attention_shard_heads
     launches."""
     import copy
-    from clipbert_tpu_torch.ops import linear as lin
     t19 = time.perf_counter()
     rng = np.random.default_rng(19)
     caps = _captions(rng, max(REQUEST_SIZES))
@@ -4747,12 +4884,18 @@ def phase_train_tools():
 # phase 22: the eval tools
 # ---------------------------------------------------------------------------
 
+def _tool_counts(d):
+    """A tool record's ``launches`` as the six counts of :func:`_counts`
+    (matmul_bn_act's: the CNN's, dense's left out)."""
+    return [d["fused_attention"], d["matmul_bn_act"] - d["dense_kernel"],
+            d["fused_stem_pool"], d["fused_attention_tc"],
+            d["matmul_bn_act_wg"] - d["dense_kernel_wg"],
+            d["fused_stem_pool_tc"]]
+
+
 def _expect_tool(what, rec, S, calls, encodes):
-    d = rec["launches"]
-    _expect_qa(what, [d["fused_attention"], d["matmul_bn_act"],
-                      d["fused_stem_pool"], d["fused_attention_tc"],
-                      d["matmul_bn_act_wg"], d["fused_stem_pool_tc"]],
-               S, calls, encodes)
+    _expect_qa(what, _tool_counts(rec["launches"]), S, calls, encodes)
+    _expect(f"{what}, dense unfused", rec["launches"]["dense_plain"], 0)
 
 
 def phase_eval_tools():
@@ -4781,9 +4924,7 @@ def phase_eval_tools():
     _expect_tool("22 bench_dataplane end to end", e2e, _seq_len(20, 448), g,
                  g)
     runs.append(e2e["launches"])
-    keys = ("fused_attention", "matmul_bn_act", "fused_stem_pool",
-            "fused_attention_tc", "matmul_bn_act_wg", "fused_stem_pool_tc")
-    launches = [sum(r[k] for r in runs) for k in keys]
+    launches = [sum(c) for c in zip(*(_tool_counts(r) for r in runs))]
     shard = sum(r["fused_attention_shard_heads"] for r in runs)
     print(f"phase 22: {time.perf_counter() - t22:.1f} s; the timed runs' "
           f"launches: attention {launches[0]} ({launches[3]} tc), "
@@ -5066,6 +5207,7 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     attn_err, attn_times = phase_attention(gen)
     mba_err, mba_times, _ = phase_matmul_bn_act(gen)
+    dense_err, dense_times = phase_dense(gen)
     stem_err, stem_times = phase_stem(gen)
 
     run_cfg = load_run_config(
@@ -5181,12 +5323,17 @@ def main() -> None:
                attn_err, attn_times[(512, 69, 12, 64)], tc, qa=True),
         record("matmul_bn_act", "matmul_bn_act.cu",
                "clipbert_tpu/ops/pallas_kernels.py:65", launches[1], mba_err,
-               mba_times[(FRAMES, 112, 112, 64, 256, True, 1, True)],
+               dict(mba_times[(FRAMES, 112, 112, 64, 256, True, 1, True)],
+                    dense_max_abs_err=dense_err, dense_shapes={
+                        f"{R}x{K}x{N}": t
+                        for (R, K, N), t in dense_times.items()}),
                "body wg: wgmma m64nNk16 (bf16 in, fp32 accumulate) in two "
                "consumer warpgroups, fed by a producer warp's TMA loads into "
                "a ring of 128B-swizzled shared-memory stages with mbarriers; "
-               "persistent blocks (one per SM) over 128 x BN tiles, BN 64 or "
-               "128 by N; BN scale/bias, residual and ReLU on the "
+               "persistent blocks (one per SM) over 128 x BN tiles, BN 64, "
+               "128 or 256 by the shape (256 at BERT's K = 768 products "
+               "in the retrieval dispatch, which ops/linear.py::dense "
+               "routes here); BN scale/bias, residual and ReLU on the "
                "accumulators, the residual in and the output out by TMA "
                "through a ring of 128 x 64 shared-memory slots (earlier_ms: "
                "body mma, 128 x 128 tiles on mma.sync m16n8k16, kept for "

@@ -811,8 +811,21 @@ bool wg_ok(int dtype, long long R, int K, int N, int stride, long long in_h,
           (in_h % stride == 0 && in_w % stride == 0 && out_w <= kBM));
 }
 
-// BN for N output channels: as wide as N needs, up to 128 (see _plan).
-int wg_tile_n(int N) { return N <= 64 ? 64 : 128; }
+// BN for an (R, K) x (K, N) product (see _wg_tile_n): 64 where N fits it;
+// 256 where N >= kWideMinN, K lies in [kWideMinK, kWideMaxK] and the
+// 256-wide tiles fill the card kWideWaves times over; else 128. A shorter
+// K loop leaves the 256-wide ring (3 stages) too shallow to cover a
+// tile's epilogue; a longer one puts more A rows in flight than L2 keeps.
+constexpr int kWideMinN = 768, kWideMinK = 768, kWideMaxK = 1024,
+              kWideWaves = 8;
+int wg_tile_n(long long R, int K, int N, int n_sms) {
+  if (N <= 64) return 64;
+  const long long wide_tiles = ((R + kBM - 1) / kBM) * ((N + 255) / 256);
+  return N >= kWideMinN && K >= kWideMinK && K <= kWideMaxK &&
+                 wide_tiles >= static_cast<long long>(kWideWaves) * n_sms
+             ? 256
+             : 128;
+}
 
 struct WgGeometry {
   long long num_m;
@@ -870,7 +883,7 @@ extern "C" int clipbert_matmul_bn_act(
   const bool can_wg =
       wg_ok(dtype, R, K, N, stride, in_h, in_w, out_w, aligned);
   if (!forced && (body != (can_wg ? kBodyWg : kBodyMma) ||
-                  (can_wg && tile_n != wg_tile_n(N))))
+                  (can_wg && tile_n != wg_tile_n(R, K, N, n_sms))))
     return kPlanMismatch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 

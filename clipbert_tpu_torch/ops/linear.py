@@ -9,6 +9,15 @@ accumulator instead. CPU builds have no such overload, so there the bf16
 operands are widened to fp32 first, which gives the same numbers: a product
 of two bf16 values is exact in fp32.
 
+:func:`dense` on a bf16 CUDA input with a bias, outside autograd (every
+eval, scoring and serving forward), is one launch of the hand-written GEMM
+(ops/matmul_bn_act.py, body wg): the fp32 accumulators get the fp32 bias
+and one rounding to bf16 in its epilogue, so the fp32 (R, N) product is
+never written. That is where XLA puts the JAX package's bias add and cast.
+Every other input takes :func:`dense_reference`, the unfused formula:
+the CPU (the numbers the JAX parity tests hold), fp32, no bias, and the
+train steps' forward under autograd (the kernel has no backward).
+
 int8 path (opt-in, inference scoring only): :func:`quantize_dense` turns
 an ``nn.Linear`` into a :class:`QuantLinear` (symmetric per-output-channel
 int8 weights), and :func:`linear` dispatches on it: activations are
@@ -30,6 +39,17 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from clipbert_tpu_torch.ops import matmul_bn_act as mba
+
+# CUDA calls of dense since the process started (or since a caller reset
+# them): those that launched matmul_bn_act's kernel, of which
+# DENSE_WG_CALLS ran its wg body (the rest its mma body: K or N off a
+# multiple of 8, or a row off 16-byte alignment), and those that took the
+# unfused formula. CPU calls count nothing.
+DENSE_KERNEL_CALLS = 0
+DENSE_WG_CALLS = 0
+DENSE_PLAIN_CALLS = 0
 
 
 class _ProductF32(torch.autograd.Function):
@@ -79,14 +99,41 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _f32_product(torch.bmm, a, b)
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor,
-          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ weight.T + bias with ``weight`` in nn.Linear's (out, in) layout;
-    the result is in x's dtype."""
+def routes_to_kernel(on_cuda: bool, dtype: torch.dtype, has_bias: bool,
+                     tracked: bool) -> bool:
+    """Whether :func:`dense` launches matmul_bn_act's kernel: a bf16 CUDA
+    input with a bias that autograd does not track."""
+    return on_cuda and dtype == torch.bfloat16 and has_bias and not tracked
+
+
+def dense_reference(x: torch.Tensor, weight: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The unfused :func:`dense`: the fp32 product, the fp32 bias add, one
+    cast to x's dtype."""
     y = mm_f32(x.reshape(-1, x.shape[-1]), weight.to(x.dtype).t())
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype).reshape(x.shape[:-1] + (weight.shape[0],))
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ weight.T + bias with ``weight`` in nn.Linear's (out, in) layout;
+    the result is in x's dtype."""
+    global DENSE_KERNEL_CALLS, DENSE_WG_CALLS, DENSE_PLAIN_CALLS
+    if not x.is_cuda:
+        return dense_reference(x, weight, bias)
+    tracked = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, weight, bias))
+    if not routes_to_kernel(True, x.dtype, bias is not None, tracked):
+        DENSE_PLAIN_CALLS += 1
+        return dense_reference(x, weight, bias)
+    wg = mba.WG_LAUNCHES
+    y = mba.matmul_bn_act(x.reshape(-1, x.shape[-1]), weight.t(), None,
+                          bias, relu=False)
+    DENSE_KERNEL_CALLS += 1
+    DENSE_WG_CALLS += mba.WG_LAUNCHES - wg
+    return y.reshape(x.shape[:-1] + (weight.shape[0],))
 
 
 def linear(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:

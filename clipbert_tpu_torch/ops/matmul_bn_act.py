@@ -26,6 +26,12 @@ reads only the kept pixels, which saves one pass over the input.
 ``scale`` may be None: the frozen-BN scale was folded into the weight
 (models/resnet.py::fold_bn_scales), and the epilogue multiplies by 1.
 
+``ops/linear.py::dense`` runs BERT's and the heads' bf16 products through
+:func:`matmul_bn_act` (``scale`` None, no residual, no ReLU): the epilogue
+then adds the fp32 bias to the fp32 accumulators and rounds once, so the
+unfused fp32 product, its bias pass and its cast pass never run. At their
+widths the wg body's plan takes 256-wide tiles (:func:`_wg_tile_n`).
+
 Routing: a CPU tensor takes :func:`matmul_bn_act_reference`; a CUDA tensor
 launches the planned body or raises. Nothing falls back.
 """
@@ -70,6 +76,12 @@ _WG_ALIGN = 1024
 _WG_BARRIER_BYTES = 256
 _WG_THREADS = 384
 WG_TILE_NS = (64, 128, 256)
+# when the wg body takes 256-wide tiles (kWideMinN, kWideMinK, kWideMaxK,
+# kWideWaves)
+_WG_WIDE_MIN_N = 768
+_WG_WIDE_MIN_K = 768
+_WG_WIDE_MAX_K = 1024
+_WG_WIDE_WAVES = 8
 
 
 class Plan(NamedTuple):
@@ -95,10 +107,21 @@ def _wg_smem_bytes(tile_n: int) -> int:
             + _WG_EPI_SLOTS * _WG_BM * _WG_SUB_N * 2 + _WG_BARRIER_BYTES)
 
 
-def _wg_tile_n(N: int) -> int:
-    """BN for N output channels (csrc wg_tile_n): 64 pads nothing at N = 64;
-    128 elsewhere."""
-    return 64 if N <= 64 else 128
+def _wg_tile_n(R: int, K: int, N: int, n_sms: int) -> int:
+    """BN for an (R, K) x (K, N) product (csrc wg_tile_n): 64 pads nothing
+    at N = 64; 256 where N >= 768, 768 <= K <= 1024 and the 256-wide tiles
+    fill the card 8 times over; 128 elsewhere. On an H100, 256 ran BERT's
+    K = 768 products at the retrieval eval's 565,248 rows 1.6-8% faster
+    than 128, and was slower at K = 3072 (its tiles in flight hold more A
+    rows than L2 keeps), at VQA's 5,248 rows (fewer tiles than waves
+    balance) and at R50's K = 256 and 512 (a K loop too short for the
+    3-stage ring to cover an epilogue)."""
+    if N <= 64:
+        return 64
+    wide_tiles = -(-R // _WG_BM) * -(-N // 256)
+    wide = (N >= _WG_WIDE_MIN_N and _WG_WIDE_MIN_K <= K <= _WG_WIDE_MAX_K
+            and wide_tiles >= _WG_WIDE_WAVES * n_sms)
+    return 256 if wide else 128
 
 
 def _wg_ok(dtype, R, K, N, stride, in_h, in_w, out_w, aligned) -> bool:
@@ -132,7 +155,7 @@ def _plan(R: int, K: int, N: int, stride: int, in_h: int, in_w: int,
         tiles = -(-R // _MMA_TILE) * -(-N // _MMA_TILE)
         return Plan("mma", tiles, _MMA_THREADS, 0, _MMA_TILE, 1)
     if tile_n is None:
-        tile_n = _wg_tile_n(N)
+        tile_n = _wg_tile_n(R, K, N, n_sms)
     elif tile_n not in WG_TILE_NS:
         raise ValueError(f"no wg tile {tile_n} wide: {WG_TILE_NS}")
     if stride == 1:

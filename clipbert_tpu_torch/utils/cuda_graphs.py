@@ -19,7 +19,8 @@ request's copy-ins, replays and copy-outs.
 Built with ``enabled=False`` it runs every call eagerly and holds nothing.
 
 The kernels' launch counters (``LAUNCHES`` etc. in ops/fused_attention.py,
-ops/matmul_bn_act.py, ops/fused_stem_pool.py) count what runs on the card:
+ops/matmul_bn_act.py, ops/fused_stem_pool.py, and ``DENSE_*_CALLS`` in
+ops/linear.py) count what runs on the card:
 the eager warm-up counts, a capture adds nothing, and each replay adds the
 launches its graph recorded. :data:`CAPTURES` counts the captures.
 """
@@ -44,11 +45,13 @@ CAPTURES = 0
 
 def _counters() -> List[Tuple[object, str]]:
     from clipbert_tpu_torch.ops import (fused_attention, fused_stem_pool,
-                                        matmul_bn_act)
+                                        linear, matmul_bn_act)
     return [(fused_attention, "LAUNCHES"), (fused_attention, "TC_LAUNCHES"),
             (fused_attention, "SHARD_HEADS_LAUNCHES"),
             (matmul_bn_act, "LAUNCHES"), (matmul_bn_act, "WG_LAUNCHES"),
-            (fused_stem_pool, "LAUNCHES"), (fused_stem_pool, "TC_LAUNCHES")]
+            (fused_stem_pool, "LAUNCHES"), (fused_stem_pool, "TC_LAUNCHES"),
+            (linear, "DENSE_KERNEL_CALLS"), (linear, "DENSE_WG_CALLS"),
+            (linear, "DENSE_PLAIN_CALLS")]
 
 
 def _read_counts() -> Tuple[int, ...]:

@@ -76,9 +76,13 @@ def timed_ms(fn, device: torch.device, iters: int = 1) -> float:
 
 def launch_counts() -> Dict[str, int]:
     """The kernel wrappers' launch counters (each counts where its kernel
-    launches, and each body's own where it has several)."""
+    launches, and each body's own where it has several), and
+    ops/linear.py::dense's CUDA calls: the matmul_bn_act launches among
+    them (``dense_kernel``, ``dense_kernel_wg`` on the wg body) and the
+    unfused ones (``dense_plain``)."""
     from clipbert_tpu_torch.ops import fused_attention as fa
     from clipbert_tpu_torch.ops import fused_stem_pool as fsp
+    from clipbert_tpu_torch.ops import linear as lin
     from clipbert_tpu_torch.ops import matmul_bn_act as mba
     return {"fused_attention": fa.LAUNCHES,
             "fused_attention_tc": fa.TC_LAUNCHES,
@@ -86,7 +90,10 @@ def launch_counts() -> Dict[str, int]:
             "matmul_bn_act_wg": mba.WG_LAUNCHES,
             "fused_stem_pool": fsp.LAUNCHES,
             "fused_stem_pool_tc": fsp.TC_LAUNCHES,
-            "fused_attention_shard_heads": fa.SHARD_HEADS_LAUNCHES}
+            "fused_attention_shard_heads": fa.SHARD_HEADS_LAUNCHES,
+            "dense_kernel": lin.DENSE_KERNEL_CALLS,
+            "dense_kernel_wg": lin.DENSE_WG_CALLS,
+            "dense_plain": lin.DENSE_PLAIN_CALLS}
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:

@@ -94,6 +94,33 @@ def test_plan_runs_every_r50_shape_on_the_wg_body(R, K, N, stride, in_hw,
     assert plan.grid == N_SMS                  # every shape fills the card
 
 
+# the plans the wg body's rule gave before it took 256-wide tiles, which it
+# keeps at every R50 shape: BN 64 at N = 64, else 128, one block per SM
+R50_PLANS = {64: mba.Plan("wg", N_SMS, 384, 214272, 64, 6),
+             128: mba.Plan("wg", N_SMS, 384, 230656, 128, 5)}
+
+
+@pytest.mark.parametrize("R,K,N,stride,in_hw,out_hw,residual", list(R50))
+def test_r50_plans_are_unchanged(R, K, N, stride, in_hw, out_hw, residual):
+    plan = mba._plan(R, K, N, stride, in_hw, in_hw, out_hw, BF16, True,
+                     N_SMS)
+    assert plan == R50_PLANS[64 if N == 64 else 128]
+
+
+@pytest.mark.parametrize("R,K,N,tile_n", [
+    (565248, 768, 2304, 256), (565248, 768, 768, 256),
+    (565248, 768, 3072, 256), (565248, 3072, 768, 128),
+    (5248, 768, 2304, 128), (5248, 768, 768, 128), (5248, 768, 3072, 128),
+    (5248, 3072, 768, 128)])
+def test_plan_at_bert_shapes(R, K, N, tile_n):
+    """BERT's four products a layer (QKV, attention output, FFN up, FFN
+    down) at the retrieval eval's 8192 x 69 rows and VQA's 32 x 164: 256
+    wide where K = 768 and the tiles fill the card 8 times over."""
+    plan = mba._plan(R, K, N, 1, R, 1, 1, BF16, True, N_SMS)
+    assert (plan.body, plan.tile_n, plan.grid) == ("wg", tile_n, N_SMS)
+    assert plan.stages == mba._wg_stages(tile_n)
+
+
 @pytest.mark.parametrize("R,K,N,stride,in_hw,out_hw,dtype,aligned,why", [
     (401408, 64, 256, 1, 112, 112, FP32, True,
      "fp32 keeps the CUDA-core products"),
@@ -163,10 +190,22 @@ def test_plan_constants_are_the_sources():
     cases = re.findall(r"return launch_wg<(\d+)>", SRC)
     assert tuple(sorted(int(c) for c in cases)) == mba.WG_TILE_NS
     # the default width and what TMA takes
-    assert re.search(r"int wg_tile_n\(int N\) \{ return N <= 64 \? 64 : 128; "
-                     r"\}", SRC)
-    assert [mba._wg_tile_n(n) for n in (8, 64, 72, 128, 2048)] == \
-        [64, 64, 128, 128, 128]
+    assert (mba._WG_WIDE_MIN_N, mba._WG_WIDE_MIN_K, mba._WG_WIDE_MAX_K,
+            mba._WG_WIDE_WAVES) == (_cu_int("kWideMinN"),
+                                    _cu_int("kWideMinK"),
+                                    _cu_int("kWideMaxK"),
+                                    _cu_int("kWideWaves"))
+    body = re.search(r"int wg_tile_n\(long long R, int K, int N, int n_sms\) "
+                     r"\{(.*?)\n\}", SRC, re.S).group(1)
+    assert "if (N <= 64) return 64;" in body
+    assert re.search(r"wide_tiles = \(\(R \+ kBM - 1\) / kBM\) \* "
+                     r"\(\(N \+ 255\) / 256\);", body)
+    assert re.search(r"N >= kWideMinN && K >= kWideMinK && K <= kWideMaxK &&"
+                     r"\s+wide_tiles >= static_cast<long long>\(kWideWaves\) "
+                     r"\* n_sms\s+\? 256\s+: 128;", body)
+    assert re.search(r"tile_n != wg_tile_n\(R, K, N, n_sms\)", SRC)
+    assert [mba._wg_tile_n(10 ** 6, 768, n, N_SMS)
+            for n in (8, 64, 72, 128, 2048)] == [64, 64, 128, 128, 256]
     assert re.search(r"K % 8 == 0 && N % 8 == 0", SRC)
     assert re.search(r"in_h % stride == 0 && in_w % stride == 0 && "
                      r"out_w <= kBM", SRC)
