@@ -9,8 +9,9 @@ Phases; any failure raises and the script exits non-zero:
  2. build: compiles the three csrc/*.cu libraries with nvcc, one process
     per source, all started together (timed), and prints each kernel's
     ptxas registers and spills; every instantiation of the attention
-    kernel's tensor-core body, of matmul_bn_act's wgmma body and of the
-    stem's tensor-core body must spill nothing.
+    kernel's tensor-core body, of matmul_bn_act's wgmma body, of the
+    stem's tensor-core body and of the grouped expert GEMM must spill
+    nothing.
  3. kernel vs plain, fused attention: the kernel against its plain PyTorch
     version at the serving, eval, ragged, tensor-core edge and longest
     shapes, fp32 and bf16, contiguous operands, strided views of one merged
@@ -300,6 +301,27 @@ fails or outlives its phase's timeout fails the script.
     runs with dense forced to the unfused formula, its matrix within
     PROB_ATOL of the routed one's. Everywhere else, the matmul_bn_act
     counts are the CNN's 1x1 convs' (_counts); dense's are counted apart.
+25. (run after phase 24) Kimi-VL-A3B's language model as the joint
+    encoder (joint_encoder "deepseek_v3", benchmark/configs/
+    kimi_vl_a3b_ret.json) at its retrieval dispatch of 2048 sequences of
+    S = 69. 25a: the two grouped expert launches of a MoE layer
+    (ops/moe.py::_grouped_launch, moe_grouped_gemm_wg_kernel) at the
+    dispatch's 141,312 tokens x 6 = 847,872 rows, (K, N) = (2048, 2816)
+    gate|up and (1408, 2048) down, on a plan the router made with one
+    expert left idle and one chosen by every token; each launch against
+    its plain version (each expert's rows through dense_reference) within
+    DENSE_ULPS bf16 ulps plus CNN_FP32_REL of the products' magnitudes,
+    the whole routed-expert path (_experts_grouped) against the plain
+    loop (_experts_plain) within KIMI_EXPERTS_REL, then each launch, its
+    plain version and the bound timed in turns. 25b: the attention core at
+    (2048, 69, 16, q/k 192, v 128), causal, with about 30% of the keys
+    masked, against fused_attention_reference within BF16_ATOL, on the tc
+    body; the kernel, the plain version and the bound timed in turns as
+    CUDA graph replays. 25c: one main-path forward of the whole model (27
+    layers, 64 experts, seeded init in bf16) at 16 clips x 16 captions:
+    the counters must show 26 grouped MoE calls, 52 grouped launches, 27
+    attention launches all on tc, and no plain expert, attention or dense
+    call.
 
 Imports nothing of JAX. Needs one card, nvcc and a few minutes.
 """
@@ -310,6 +332,7 @@ import contextlib
 import functools
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -340,6 +363,7 @@ from clipbert_tpu_torch.ops import fused_attention as fa
 from clipbert_tpu_torch.ops import fused_stem_pool as fsp
 from clipbert_tpu_torch.ops import linear as lin
 from clipbert_tpu_torch.ops import matmul_bn_act as mba
+from clipbert_tpu_torch.ops import moe
 from clipbert_tpu_torch.ops.linear import mm_f32
 from clipbert_tpu_torch.parallel import shard_model
 from clipbert_tpu_torch.serve import (RetrievalScorer, VideoQAScorer,
@@ -355,10 +379,11 @@ from clipbert_tpu_torch.utils.distributed import spawn_ranks
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LIBRARIES = ("fused_attention", "matmul_bn_act", "fused_stem_pool")
 # the register-resident bodies, every instantiation of which must not spill:
-# attention's tensor-core body, matmul_bn_act's wgmma body (one per BN) and
-# the stem's tensor-core body
+# attention's tensor-core body, matmul_bn_act's wgmma body (one per BN),
+# the stem's tensor-core body and the grouped expert GEMM on the wgmma body
+# (one per BN)
 NO_SPILL = ("fused_attention_tc_kernel", "matmul_bn_act_wg_kernel",
-            "fused_stem_pool_tc_kernel")
+            "fused_stem_pool_tc_kernel", "moe_grouped_gemm_wg_kernel")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -410,6 +435,19 @@ DENSE_ULPS = 1
 # sequences of S = 69) and of a VQA batch (32 of S = 164)
 DENSE_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 DENSE_ROWS = (8192 * 69, 32 * 164)
+# Kimi-VL-A3B's language model (phase 25): its configuration as the
+# benchmark runs it, and one retrieval dispatch of 16 captions x 8 videos
+# x 16 clips = 2048 sequences of 49 visual + 20 text tokens
+KIMI_CONFIG = os.path.join(ROOT, "benchmark", "configs",
+                           "kimi_vl_a3b_ret.json")
+KIMI_SEQS, KIMI_S = 2048, 69
+# the routed experts, grouped against the plain loop: each side rounds
+# the gate|up product and the output once to bf16, from fp32 sums taken
+# in another order; where a sum's last bits land a rounding of h on the
+# other side (one ulp, 2^-8 relative) SiLU x up carries it into the down
+# product as one ulp on that term alone, so the output's RMS gap stays
+# far below one ulp of the output
+KIMI_EXPERTS_REL = BF16_ULP
 # The CNN's kernel form against its cuDNN form on the same pixels: grid
 # features compared as ||kernel - cuDNN|| / ||cuDNN|| over the whole batch.
 # The forms round bf16 at other points, about one ulp per layer through 53
@@ -531,10 +569,12 @@ def phase_build() -> float:
     print(f"build: {counts[NO_SPILL[0]]} instantiations of the attention "
           f"kernel's tensor-core body, {counts[NO_SPILL[1]]} of "
           f"matmul_bn_act's wgmma body, {counts[NO_SPILL[2]]} of the stem's "
-          f"tensor-core body, {len(spilled)} spilling")
+          f"tensor-core body, {counts[NO_SPILL[3]]} of the grouped expert "
+          f"GEMM, {len(spilled)} spilling")
     if spilled or counts[NO_SPILL[0]] == 0 or \
             counts[NO_SPILL[1]] != len(mba.WG_TILE_NS) or \
-            counts[NO_SPILL[2]] != 1:
+            counts[NO_SPILL[2]] != 1 or \
+            counts[NO_SPILL[3]] != len(mba.WG_TILE_NS):
         raise AssertionError(f"instantiations {counts}; spilling: {spilled}")
     return dt
 
@@ -1045,6 +1085,249 @@ def phase_dense(gen):
             del x, w, b
             torch.cuda.empty_cache()
     return worst, times
+
+
+def _kimi_cfg():
+    return ModelConfig.from_json(KIMI_CONFIG, num_labels=2)
+
+
+def _grouped_check(x_rows, w, expert_rows, out, what):
+    """One grouped launch's live rows against each expert's rows through
+    dense_reference, 65536 rows at a time; returns the max abs error."""
+    err, share = 0.0, 0.0
+    for e, r in expert_rows:
+        for i in range(0, r.numel(), 65536):
+            ri = r[i:i + 65536]
+            xe = x_rows.index_select(0, ri)
+            ref = lin.dense_reference(xe, w[e]).float()
+            mag = xe.float().abs() @ w[e].float().abs().t()
+            bound = CNN_FP32_REL * mag + DENSE_ULPS * BF16_ULP * ref.abs()
+            diff = (out.index_select(0, ri).float() - ref).abs()
+            err = max(err, diff.max().item())
+            share = max(share, (diff / bound.clamp_min(1e-30)).max().item())
+    print(f"grouped expert GEMM vs plain {what}: max_abs_err {err:.3e} "
+          f"(worst share of bound {share:.3f}) "
+          f"{'ok' if share <= 1 else 'FAIL'}")
+    if share > 1:
+        raise AssertionError(f"{what}: the grouped launch disagrees with "
+                             f"each expert's dense_reference by {err}")
+    return err
+
+
+def _grouped_plain(x_rows, w, expert_rows):
+    """The grouped launch's plain version: each expert's rows through
+    dense_reference, row lists made beforehand (no host sync)."""
+    out = x_rows.new_zeros(x_rows.shape[0], w.shape[1])
+    for e, r in expert_rows:
+        out[r] = lin.dense_reference(x_rows.index_select(0, r), w[e])
+    return out
+
+
+def _phase_grouped(cfg, gen):
+    """25a; returns (worst error, {name: timing keys})."""
+    T, k = KIMI_SEQS * KIMI_S, cfg.num_experts_per_tok
+    E, D, I = cfg.n_routed_experts, cfg.hidden_size, \
+        cfg.moe_intermediate_size
+    idle, busy = 5, 9
+    x = torch.randn(T, D, device="cuda", generator=gen).to(torch.bfloat16)
+    gate_w = (torch.randn(E, D, device="cuda", generator=gen)
+              * D ** -0.5).to(torch.bfloat16)
+    bias = 0.05 * torch.randn(E, device="cuda", generator=gen)
+    bias[idle], bias[busy] = -10.0, 10.0
+    gate_up = (torch.randn(E, 2 * I, D, device="cuda", generator=gen)
+               * D ** -0.5).to(torch.bfloat16)
+    down = (torch.randn(E, D, I, device="cuda", generator=gen)
+            * I ** -0.5).to(torch.bfloat16)
+    with torch.no_grad():
+        idx, _ = moe.route(x, gate_w, bias, k, cfg.routed_scaling_factor,
+                           cfg.norm_topk_prob)
+        plan = moe.plan_rows(idx, E)
+        counts = plan.counts.tolist()
+        if counts[idle] != 0 or counts[busy] != T:
+            raise AssertionError(f"the planted router bias gave expert "
+                                 f"{idle} {counts[idle]} rows and {busy} "
+                                 f"{counts[busy]}, not 0 and {T}")
+        pairs = T * k
+        loads = sorted(c for c in counts if c)
+        print(f"grouped plan: {pairs} rows over {E} experts, buffer "
+              f"{plan.rows} rows, {int(plan.live_m)} live tiles of "
+              f"{moe.ROW_TILE}; rows an expert {loads[0]}-{loads[-1]} "
+              f"(expert {idle} idle, expert {busy} on every token)")
+        expert_rows = [(e, plan.dest[idx == e]) for e in range(E)
+                       if counts[e]]
+        x_rows = torch.cat([x, x.new_zeros(1, D)]).index_select(0, plan.src)
+        launches = moe.GROUPED_LAUNCHES
+        h = moe._grouped_launch(x_rows, gate_up, plan.tile_expert,
+                                plan.live_m, pairs)
+        a = moe.swiglu(h, I)
+        y = moe._grouped_launch(a, down, plan.tile_expert, plan.live_m,
+                                pairs)
+        torch.cuda.synchronize()
+        _expect("grouped launches", moe.GROUPED_LAUNCHES - launches, 2)
+        worst = max(_grouped_check(x_rows, gate_up, expert_rows, h,
+                                   f"gate|up K={D} N={2 * I}"),
+                    _grouped_check(a, down, expert_rows, y,
+                                   f"down K={I} N={D}"))
+        del h, y
+        y_g, dest_g = moe._experts_grouped(x, idx, gate_up, down)
+        y_p, dest_p = moe._experts_plain(x, idx, gate_up, down)
+        got = y_g.index_select(0, dest_g.reshape(-1)).float()
+        want = y_p.index_select(0, dest_p.reshape(-1)).float()
+        rel = ((got - want).pow(2).mean().sqrt()
+               / want.pow(2).mean().sqrt()).item()
+        err = (got - want).abs().max().item()
+        print(f"routed experts grouped vs the plain loop at {T} tokens: "
+              f"relative RMS gap {rel:.3e}, max_abs_err {err:.3e} "
+              f"{'ok' if rel <= KIMI_EXPERTS_REL else 'FAIL'}")
+        if rel > KIMI_EXPERTS_REL:
+            raise AssertionError(f"grouped experts disagree with the plain "
+                                 f"loop: relative RMS gap {rel}")
+        del y_g, y_p, got, want
+        torch.cuda.empty_cache()
+        times = {}
+        for name, a_in, w in (("gate_up", x_rows, gate_up),
+                              ("down", a, down)):
+            _, N, K = w.shape
+            ms = _in_turns(
+                lambda: moe._grouped_launch(a_in, w, plan.tile_expert,
+                                            plan.live_m, pairs),
+                lambda: _grouped_plain(a_in, w, expert_rows), 3)
+            bound = _bound_ms(2.0 * pairs * K * N,
+                              (pairs * (K + N) + E * N * K) * 2)
+            times[name] = _timing(ms, bound)
+            print(f"time bf16 grouped {name} ({pairs} rows, K={K} N={N}, "
+                  f"by CUDA events over 3 calls): kernel "
+                  f"{_windows(ms, 'kernel')} ms "
+                  f"({2 * pairs * K * N / times[name]['ms'] / 1e9:.1f} "
+                  f"TFLOP/s, {bound[0] / times[name]['ms']:.1%} of bound), "
+                  f"plain {_windows(ms, 'plain')} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})")
+    return worst, times
+
+
+def _phase_mla_attention(cfg, gen):
+    """25b; returns (max abs error, timing keys)."""
+    B, S, H = KIMI_SEQS, KIMI_S, cfg.num_attention_heads
+    dk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    dv = cfg.v_head_dim
+    q, k = (torch.randn(B, S, H, dk, device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    v = torch.randn(B, S, H, dv, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    keep = torch.rand(B, S, device="cuda", generator=gen) > 0.3
+    keep[:, 0] = True       # every query keeps key 0 under the causal mask
+    bias = (1.0 - keep.float()) * -10000.0
+    scale = dk ** -0.5
+    with torch.no_grad():
+        ref = fa.fused_attention_reference(q, k, v, bias, scale, causal=True)
+        before = (fa.LAUNCHES, fa.TC_LAUNCHES)
+        out = fa.fused_attention(q, k, v, bias, scale, causal=True)
+        torch.cuda.synchronize()
+    ran = (fa.LAUNCHES - before[0], fa.TC_LAUNCHES - before[1])
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"kernel vs plain {(B, S, H, dk, dv)} latent attention, causal, "
+          f"bf16: max_abs_err {err:.3e} "
+          f"{'ok' if err <= BF16_ATOL else 'FAIL'}")
+    if ran != (1, 1):
+        raise AssertionError(f"latent attention: counters moved {ran}, "
+                             "not one launch on the tc body")
+    if err > BF16_ATOL:
+        raise AssertionError(f"latent attention disagrees with its plain "
+                             f"version by {err}")
+    iters = 5
+    ms = _in_turns(
+        lambda: fa.fused_attention(q, k, v, bias, scale, causal=True),
+        lambda: fa.fused_attention_reference(q, k, v, bias, scale,
+                                             causal=True),
+        iters, graph=True)
+    pairs = S * (S + 1) / 2
+    bound = _bound_ms(2.0 * B * H * pairs * (dk + dv),
+                      B * S * H * (2 * dk + 2 * dv) * 2 + B * S * 4)
+    print(f"time bf16 latent attention {(B, S, H, dk, dv)} causal (device "
+          f"time, CUDA graph of {iters} calls): tc body "
+          f"{_windows(ms, 'kernel')} ms, plain {_windows(ms, 'plain')} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]})")
+    return err, _timing(ms, bound)
+
+
+def _kimi_counts():
+    return {"moe_grouped_calls": moe.MOE_GROUPED_CALLS,
+            "moe_plain_calls": moe.MOE_PLAIN_CALLS,
+            "grouped_launches": moe.GROUPED_LAUNCHES,
+            "attention_launches": fa.LAUNCHES,
+            "attention_tc_launches": fa.TC_LAUNCHES,
+            "dense_plain": lin.DENSE_PLAIN_CALLS}
+
+
+def _phase_kimi_forward(cfg, gen):
+    """25c; returns the forward's counter moves."""
+    t0 = time.perf_counter()
+    model = clipbert.empty_clipbert(cfg, "retrieval", device="cuda",
+                                    lm_dtype=torch.bfloat16)
+    clipbert._init_weights(model, cfg, gen)
+    model.eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    print(f"Kimi-VL model: "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{cfg.num_hidden_layers} layers, {cfg.n_routed_experts} experts, "
+          f"init in {time.perf_counter() - t0:.1f} s")
+    with open(KIMI_CONFIG) as f:
+        raw = json.load(f)
+    clips, caps = raw["inference_n_clips"], raw["inference_batch_size"]
+    frames, txt = raw["num_frm"], raw["max_txt_len"]
+    side = math.isqrt(KIMI_S - txt)
+    feats = torch.relu(torch.randn(clips, frames, side, side,
+                                   cfg.hidden_size, device="cuda",
+                                   generator=gen)).to(torch.bfloat16)
+    ids = torch.randint(5, cfg.vocab_size, (clips * caps, txt),
+                        device="cuda", generator=gen)
+    lens = torch.randint(4, txt + 1, (clips * caps, 1), device="cuda",
+                         generator=gen)
+    mask = (torch.arange(txt, device="cuda") < lens).long()
+    batch = {"text_input_ids": ids, "text_input_mask": mask}
+    before = _kimi_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        start.record()
+        out = clipbert.clipbert_forward(
+            model, cfg, batch, "retrieval", compute_dtype=torch.bfloat16,
+            visual_features=feats, group_size=caps, fused_attn=True)
+        end.record()
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in _kimi_counts().items()}
+    n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    want = {"moe_grouped_calls": n_moe, "moe_plain_calls": 0,
+            "grouped_launches": 2 * n_moe,
+            "attention_launches": cfg.num_hidden_layers,
+            "attention_tc_launches": cfg.num_hidden_layers,
+            "dense_plain": 0}
+    finite = bool(torch.isfinite(out["logits"]).all())
+    print(f"Kimi-VL main-path forward, {clips} clips x {caps} captions "
+          f"({clips * caps} sequences of S <= {KIMI_S}): "
+          f"{start.elapsed_time(end):.1f} ms (first call), counters moved "
+          f"{moved}, logits finite {finite}")
+    if moved != want or not finite:
+        raise AssertionError(f"the Kimi-VL forward moved the counters "
+                             f"{moved}, expected {want}; finite {finite}")
+    del model, feats, out
+    torch.cuda.empty_cache()
+    return moved
+
+
+def phase_kimi(gen):
+    """Phase 25. Returns {"grouped_max_abs_err", "grouped": {name: timing
+    keys}, "attention_max_abs_err", "attention": timing keys,
+    "forward_launches"}."""
+    cfg = _kimi_cfg()
+    g_err, g_times = _phase_grouped(cfg, gen)
+    torch.cuda.empty_cache()
+    a_err, a_times = _phase_mla_attention(cfg, gen)
+    torch.cuda.empty_cache()
+    moved = _phase_kimi_forward(cfg, gen)
+    return {"grouped_max_abs_err": g_err, "grouped": g_times,
+            "attention_max_abs_err": a_err, "attention": a_times,
+            "forward_launches": moved}
 
 
 def _stem_inputs(B, H, W, dtype, gen):
@@ -5208,6 +5491,7 @@ def main() -> None:
     attn_err, attn_times = phase_attention(gen)
     mba_err, mba_times, _ = phase_matmul_bn_act(gen)
     dense_err, dense_times = phase_dense(gen)
+    kimi = phase_kimi(gen)
     stem_err, stem_times = phase_stem(gen)
 
     run_cfg = load_run_config(
@@ -5353,7 +5637,28 @@ def main() -> None:
                "cores, kept for fp32)", qa=True),
         record("fused_attention_shard_heads", "fused_attention.cu",
                "clipbert_tpu/ops/pallas_attention.py:132", tp_launches,
-               shard_err, shard_time, tc + " on a rank's heads")]}))
+               shard_err, shard_time, tc + " on a rank's heads"),
+        # phase 25: kernels no TPU kernel precedes (the JAX package has
+        # no experts and no latent attention); launches are one Kimi-VL
+        # forward's
+        {"name": "moe_grouped_gemm", "route": "cuda",
+         "source": "clipbert_tpu_torch/csrc/matmul_bn_act.cu",
+         "replaces": None,
+         "launches": kimi["forward_launches"]["grouped_launches"],
+         "max_abs_err": kimi["grouped_max_abs_err"],
+         "shapes": kimi["grouped"],
+         "design": "matmul_bn_act's wg body over a persistent walk of "
+                   "(expert, 128-row tile, column tile): each live row "
+                   "tile's expert and the live tile count read from device "
+                   "memory, the stacked expert weights by a 3-D TMA map"},
+        {"name": "fused_attention_mla", "route": "cuda",
+         "source": "clipbert_tpu_torch/csrc/fused_attention.cu",
+         "replaces": None,
+         "launches": kimi["forward_launches"]["attention_tc_launches"],
+         "max_abs_err": kimi["attention_max_abs_err"],
+         **kimi["attention"],
+         "design": tc + "; at q/k 192 and v 128, causal: the key tiles "
+                        "past each query tile skipped"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -55,6 +55,32 @@ class ModelConfig:
     pixel_random_sampling_size: int = 0  # 0 disables; pretrain uses 100
     score_agg_func: str = "mean"  # mean | max | lse (cross-clip aggregation)
 
+    # The joint encoder: "bert" (the fields above) or "deepseek_v3", a
+    # pre-norm decoder with latent attention (MLA) and routed experts
+    # (models/deepseek_v3.py), read from the fields below under the names
+    # of the published DeepSeek-V3 / Kimi-VL config.json. hidden_size,
+    # num_hidden_layers, num_attention_heads, intermediate_size (the dense
+    # layers' SwiGLU width) and vocab_size are shared with BERT.
+    joint_encoder: str = "bert"
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    moe_intermediate_size: int = 1408
+    first_k_dense_replace: int = 1
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 2.446
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    norm_topk_prob: bool = True
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads

@@ -85,6 +85,14 @@
 //   VQA's (32, 164) and 0.169 ms at MSRVTT-QA's (256, 149), 33% and 41%
 //   of the bound, against SDPA's 0.038 and 0.482 and body v2's 0.55 and
 //   3.44.
+//   Latent attention (DeepSeek-V3 MLA, models/deepseek_v3.py) gives q and
+//   k 192 dims (128 + 64 RoPE) and v 128, under a causal mask: the same
+//   body with K and V staged at their own widths (32 * KT * (dk + dv + 18)
+//   bytes: 54,080 at S = 69), Q's fragments 12 k-steps deep (48
+//   registers), and a causal warp skipping the key tiles past its query
+//   tile in both products, so about half the product work of the full
+//   square is done. The existing instantiations (dk == dv, not causal)
+//   compile as before.
 //   Why mma.sync and not wgmma here: wgmma takes 64-row M tiles, so S = 69
 //   would pad to 128 rows (85% more product work and registers), and it
 //   wants B in the canonical swizzled shared-memory layout. At ~35-80 FLOP
@@ -341,6 +349,9 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---- body "tc": both products on mma.sync, the softmax in registers -------
 
 constexpr int kTcMaxSeq = 176;
+// latent attention's head widths (DeepSeek-V3 MLA: 128 + 64 RoPE dims of q
+// and k, 128 of v), the one tc instantiation with dk != dv
+constexpr int kMlaQkDim = 192, kMlaVDim = 128;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -430,9 +441,13 @@ __host__ __device__ constexpr int tc_block_threads(int KT) {
   return 32 * ((KT + tc_splits(KT) - 1) / tc_splits(KT));
 }
 
-// KT: 16-key tiles (S <= 16 KT); DK: dh / 16. One warp per 16 query rows,
-// blockDim.x / 32 warps a block; a warp past the last tile only stages.
-template <int KT, int DK>
+// KT: 16-key tiles (S <= 16 KT); DK: the q/k head dim / 16; DV: v's head
+// dim / 16 (DK for BERT; 8 beside DK = 12 for latent attention's 192-wide
+// q/k and 128-wide v); CAUSAL: key j > query i is masked as well, and a
+// warp skips the 16-key tiles past its own query tile in both products.
+// One warp per 16 query rows, blockDim.x / 32 warps a block; a warp past
+// the last tile only stages.
+template <int KT, int DK, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(tc_block_threads(KT))
 fused_attention_tc_kernel(const uint16_t* __restrict__ q,
                           const uint16_t* __restrict__ k,
@@ -442,12 +457,13 @@ fused_attention_tc_kernel(const uint16_t* __restrict__ q,
                           Strides kst, Strides vst, int S, int H,
                           int splits, float scale, bool vec) {
   constexpr int DH = 16 * DK, LD = DH + 8;
+  constexpr int DHV = 16 * DV, LDV = DHV + 8;
   constexpr int NT = 2 * KT;            // 8-key n-tiles of a score row
-  constexpr int ON = 2 * DK;            // 8-dim n-tiles of an output row
+  constexpr int ON = 2 * DV;            // 8-dim n-tiles of an output row
   extern __shared__ uint4 smem_tc[];
   uint16_t* k_s = reinterpret_cast<uint16_t*>(smem_tc);   // [16 KT][LD]
-  uint16_t* v_s = k_s + 16 * KT * LD;                      // [16 KT][LD]
-  float* b_s = reinterpret_cast<float*>(v_s + 16 * KT * LD);  // [16 KT]
+  uint16_t* v_s = k_s + 16 * KT * LD;                      // [16 KT][LDV]
+  float* b_s = reinterpret_cast<float*>(v_s + 16 * KT * LDV);  // [16 KT]
 
   const int split = blockIdx.x % splits;
   const int bh = blockIdx.x / splits;
@@ -464,7 +480,7 @@ fused_attention_tc_kernel(const uint16_t* __restrict__ q,
 
   stage_tc<KT, DK>(k_s, kb, kst.s, S, vec);
   cp_async_commit();
-  stage_tc<KT, DK>(v_s, vb, vst.s, S, vec);
+  stage_tc<KT, DV>(v_s, vb, vst.s, S, vec);
   cp_async_commit();
   // the key bias, -inf on the padded keys j >= S (a padded key with a
   // finite score would shift every row)
@@ -506,6 +522,7 @@ fused_attention_tc_kernel(const uint16_t* __restrict__ q,
     for (int ks = 0; ks < DK; ++ks) {
 #pragma unroll
       for (int np = 0; np < KT; ++np) {
+        if (CAUSAL && np > tile) continue;   // every key past every row
         uint32_t kf[4];
         ldmatrix_x4(kf, k_s + (np * 16 + k_row) * LD + ks * 16 + k_col);
         mma_bf16(sc[2 * np], qf[ks], kf[0], kf[1]);
@@ -524,6 +541,13 @@ fused_attention_tc_kernel(const uint16_t* __restrict__ q,
       sc[n][1] = __fadd_rn(__fmul_rn(sc[n][1], scale), bj.y);
       sc[n][2] = __fadd_rn(__fmul_rn(sc[n][2], scale), bj.x);
       sc[n][3] = __fadd_rn(__fmul_rn(sc[n][3], scale), bj.y);
+      if (CAUSAL) {                     // keys 8 n + 2t (+1) past rows r0, r1
+        const int j0 = n * 8 + 2 * t;
+        if (j0 > r0) sc[n][0] = -CUDART_INF_F;
+        if (j0 + 1 > r0) sc[n][1] = -CUDART_INF_F;
+        if (j0 > r1) sc[n][2] = -CUDART_INF_F;
+        if (j0 + 1 > r1) sc[n][3] = -CUDART_INF_F;
+      }
       mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
       mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
     }
@@ -578,18 +602,19 @@ fused_attention_tc_kernel(const uint16_t* __restrict__ q,
   const int v_col = (lane >> 4) << 3;
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt) {
+    if (CAUSAL && kt > tile) continue;  // probabilities all 0 there
 #pragma unroll
-    for (int dp = 0; dp < DK; ++dp) {
+    for (int dp = 0; dp < DV; ++dp) {
       uint32_t vf[4];
-      ldmatrix_x4_trans(vf, v_s + (kt * 16 + v_row) * LD + dp * 16 + v_col);
+      ldmatrix_x4_trans(vf, v_s + (kt * 16 + v_row) * LDV + dp * 16 + v_col);
       mma_bf16(o[2 * dp], pf[kt], vf[0], vf[1]);
       mma_bf16(o[2 * dp + 1], pf[kt], vf[2], vf[3]);
     }
   }
 
-  // output: a fresh contiguous (B, S, H, dh) tensor; rows >= S not written
-  uint16_t* o0 = out + ((b * S + r0) * H + h) * DH + 2 * t;
-  uint16_t* o1 = o0 + 8LL * H * DH;
+  // output: a fresh contiguous (B, S, H, dv) tensor; rows >= S not written
+  uint16_t* o0 = out + ((b * S + r0) * H + h) * DHV + 2 * t;
+  uint16_t* o1 = o0 + 8LL * H * DHV;
 #pragma unroll
   for (int n = 0; n < ON; ++n) {
     if (r0 < S)
@@ -688,23 +713,32 @@ cudaError_t launch_v2(const void* q, const void* k, const void* v,
   }
 }
 
-// The tc plan: (b, h) split over `splits` blocks of `threads` threads
+// The tc plan: (b, h) split over `splits` blocks of `threads` threads;
+// shared memory holds K ([16 KT][dk + 8] bf16), V ([16 KT][dv + 8]) and
+// the key bias (16 KT fp32)
 struct TcPlan {
-  int KT, DK, splits, threads, smem;
+  int KT, DK, DV, causal, splits, threads, smem;
 };
 
-TcPlan plan_tc(int S, int dh) {
+TcPlan plan_tc(int S, int dk, int dv, int causal) {
   const int KT = (S + 15) / 16;
-  return TcPlan{KT, dh / 16, tc_splits(KT), tc_block_threads(KT),
-                64 * KT * (dh + 9)};
+  return TcPlan{KT, dk / 16, dv / 16, causal, tc_splits(KT),
+                tc_block_threads(KT), 32 * KT * (dk + dv + 18)};
 }
 
-template <int KT, int DK>
+// The tc body's head widths: dk == dv (a multiple of 16 up to 128, not
+// causal: BERT), or latent attention's dk 192 with dv 128, causal or not
+bool tc_dims_ok(int dk, int dv, int causal) {
+  if (dk == kMlaQkDim && dv == kMlaVDim) return true;
+  return dk == dv && dk % 16 == 0 && dk <= kMaxHeadDim && !causal;
+}
+
+template <int KT, int DK, int DV, bool CAUSAL>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const float* key_bias, void* out, int B, int S, int H,
                       Strides qst, Strides kst, Strides vst, float scale,
                       bool vec, const TcPlan& p, cudaStream_t stream) {
-  auto kern = fused_attention_tc_kernel<KT, DK>;
+  auto kern = fused_attention_tc_kernel<KT, DK, DV, CAUSAL>;
   if (p.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
@@ -724,11 +758,20 @@ cudaError_t launch_tc_dk(const void* q, const void* k, const void* v,
                          int H, Strides qst, Strides kst, Strides vst,
                          float scale, bool vec, const TcPlan& p,
                          cudaStream_t stream) {
+  if (p.DK == kMlaQkDim / 16) {
+    if (p.causal)
+      return launch_tc<KT, kMlaQkDim / 16, kMlaVDim / 16, true>(
+          q, k, v, key_bias, out, B, S, H, qst, kst, vst, scale, vec, p,
+          stream);
+    return launch_tc<KT, kMlaQkDim / 16, kMlaVDim / 16, false>(
+        q, k, v, key_bias, out, B, S, H, qst, kst, vst, scale, vec, p,
+        stream);
+  }
   switch (p.DK) {
-#define CLIPBERT_DK(D)                                                      \
-  case D:                                                                   \
-    return launch_tc<KT, D>(q, k, v, key_bias, out, B, S, H, qst, kst, vst, \
-                            scale, vec, p, stream);
+#define CLIPBERT_DK(D)                                                     \
+  case D:                                                                  \
+    return launch_tc<KT, D, D, false>(q, k, v, key_bias, out, B, S, H, qst, \
+                                      kst, vst, scale, vec, p, stream);
     CLIPBERT_DK(1)
     CLIPBERT_DK(2)
     CLIPBERT_DK(3)
@@ -777,22 +820,23 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). body: 0 =
-// v2, 1 = tc (bfloat16, dh % 16 == 0, S <= kTcMaxSeq; plan_tc). key_bias
-// is a contiguous (B, S) float32 array, out a contiguous (B, S, H, dh)
-// array.
+// v2 (dh == dv, not causal), 1 = tc (bfloat16, S <= kTcMaxSeq, tc_dims_ok;
+// plan_tc). dh is q's and k's head width, dv v's; causal masks key j > query
+// i on top of key_bias. key_bias is a contiguous (B, S) float32 array, out a
+// contiguous (B, S, H, dv) array.
 // blocks, threads, smem and vec are the caller's plan of the launch
 // (ops/fused_attention.py::_plan); it must equal the one derived here.
 // Returns the launch's cudaError_t (0 on success), or kPlanMismatch;
 // does not synchronise.
 extern "C" int clipbert_fused_attention(
     const void* q, const void* k, const void* v, const void* key_bias,
-    void* out, int dtype, int body, int B, int S, int H, int dh,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    void* out, int dtype, int body, int B, int S, int H, int dh, int dv,
+    int causal, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, float scale, long long blocks, int threads, int smem,
     int vec, void* stream) {
   if (B < 1 || S < 1 || S > kMaxSeq || H < 1 || dh < 8 || dh % 8 != 0 ||
-      dh > kMaxHeadDim || (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (causal != 0 && causal != 1))
     return cudaErrorInvalidValue;
   const Strides qst{q_sb, q_ss, q_sh}, kst{k_sb, k_ss, k_sh},
       vst{v_sb, v_ss, v_sh};
@@ -807,9 +851,9 @@ extern "C" int clipbert_fused_attention(
                    rows16(qst) && rows16(kst) && rows16(vst);
   if (vec != (int)v16) return kPlanMismatch;
   if (body == kBodyTc) {
-    if (dtype != 1 || dh % 16 != 0 || S > kTcMaxSeq)
+    if (dtype != 1 || !tc_dims_ok(dh, dv, causal) || S > kTcMaxSeq)
       return cudaErrorInvalidValue;
-    const TcPlan p = plan_tc(S, dh);
+    const TcPlan p = plan_tc(S, dh, dv, causal);
     if (blocks != (long long)B * H * p.splits || threads != p.threads ||
         smem != p.smem)
       return kPlanMismatch;
@@ -817,7 +861,8 @@ extern "C" int clipbert_fused_attention(
     return launch_tc_any(q, k, v, bias, out, B, S, H, qst, kst, vst, scale,
                          v16, p, st);
   }
-  if (body != kBodyV2) return cudaErrorInvalidValue;
+  if (body != kBodyV2 || dh != dv || dh > kMaxHeadDim || causal)
+    return cudaErrorInvalidValue;
   V2Plan p;
   if (!plan_v2(S, dh, &p)) return cudaErrorInvalidValue;
   if (blocks != (long long)B * H * p.n_tiles || threads != kThreads ||

@@ -87,7 +87,25 @@
 //
 // The caller (ops/matmul_bn_act.py::_plan) names the body, BN, stages,
 // threads, shared bytes and grid; the entry point derives them again and
-// refuses a launch whose plan differs (kPlanMismatch).
+// refuses a launch whose plan differs (kPlanMismatch). `bias` may be null
+// (ops/linear.py::dense's bias-free products): the epilogue adds nothing.
+//
+// The grouped product of a mixture-of-experts layer (ops/moe.py) runs the
+// wg body's producer, consumers and epilogue as they are, under its own
+// kernel name (moe_grouped_gemm_wg_kernel) and entry point
+// (clipbert_moe_grouped_gemm): one launch computes every expert's rows,
+//
+//   out[r, n] = sum_k x[r, k] * w[e(r), n, k]   (no bias, no activation)
+//
+// over x's rows sorted by expert, each expert's run of rows padded to a
+// multiple of 128 so that no 128-row tile straddles two experts (the
+// padding rows are scratch: computed, stored, never read). w holds the E
+// experts' (N, K) weights stacked, read by a 3-D tensor map (K, N, E)
+// whose third coordinate is the tile's expert. The tile walk is the wg
+// body's persistent one over (row tile, column tile), bounded by the
+// number of live row tiles and led by each row tile's expert, both read
+// from device memory where the routing wrote them: the host knows only the
+// bound, rows * top_k + E * 127, and nothing waits for the device.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder comes from the
                     // driver at run time, so nothing links against libcuda
@@ -125,7 +143,7 @@ struct Args {
   const void* x;
   const void* w;
   const float* scale;     // null: all ones
-  const float* bias;
+  const float* bias;      // null: all zeros
   const void* res;        // null: no residual
   void* out;
   long long R;
@@ -313,7 +331,7 @@ matmul_bn_act_kernel(Args a) {
     for (int e = 0; e < 2; ++e) {
       const bool ok = n + e < a.N;
       s[e] = (ok && a.scale) ? a.scale[n + e] : 1.f;
-      bb[e] = ok ? a.bias[n + e] : 0.f;
+      bb[e] = (ok && a.bias) ? a.bias[n + e] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -384,7 +402,9 @@ __host__ __device__ constexpr int wg_smem_bytes(int bn) {
 
 struct WgArgs {
   const float* scale;     // null: all ones
-  const float* bias;
+  const float* bias;      // null: all zeros
+  const int* tile_expert; // grouped: each 128-row tile's expert
+  const int* live_m;      // grouped: the row tiles that hold rows
   long long num_tiles;
   int N, num_k, num_n, has_res, relu;
   int step1, step2;       // tile m's row coordinates: (m * step1, m * step2)
@@ -579,13 +599,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
          (uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
 }
 
-template <int BN>
-__global__ void __launch_bounds__(kWgThreads, 1)
-matmul_bn_act_wg_kernel(const __grid_constant__ CUtensorMap tm_a,
-                        const __grid_constant__ CUtensorMap tm_b,
-                        const __grid_constant__ CUtensorMap tm_r,
-                        const __grid_constant__ CUtensorMap tm_o,
-                        const WgArgs a) {
+// The wg body; GROUPED: the grouped expert product (the tile count and
+// each row tile's expert from device memory).
+template <int BN, bool GROUPED>
+__device__ __forceinline__ void wg_body(const CUtensorMap& tm_a,
+                                        const CUtensorMap& tm_b,
+                                        const CUtensorMap& tm_r,
+                                        const CUtensorMap& tm_o,
+                                        const WgArgs a) {
   constexpr int STAGES = wg_stages(BN);
   constexpr int A_BYTES = kBM * kBK * 2, B_BYTES = BN * kBK * 2;
   constexpr int SUBS = BN / kSubN;
@@ -617,6 +638,8 @@ matmul_bn_act_wg_kernel(const __grid_constant__ CUtensorMap tm_a,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  const long long num_tiles =
+      GROUPED ? static_cast<long long>(*a.live_m) * a.num_n : a.num_tiles;
 
   if (threadIdx.x >= 256) {
     // ---- producer warpgroup: one thread issues every load ----------------
@@ -624,16 +647,17 @@ matmul_bn_act_wg_kernel(const __grid_constant__ CUtensorMap tm_a,
     if (threadIdx.x == 256) {
       int stage = 0;
       uint32_t phase = 0, u = 0;
-      for (long long tile = blockIdx.x; tile < a.num_tiles;
+      for (long long tile = blockIdx.x; tile < num_tiles;
            tile += gridDim.x) {
         const int m = int(tile / a.num_n), n = int(tile % a.num_n);
         const int c1 = m * a.step1, c2 = m * a.step2;
+        const int expert = GROUPED ? a.tile_expert[m] : 0;
         for (int kt = 0; kt < a.num_k; ++kt) {
           mbar_wait(empty(stage), phase ^ 1);
           mbar_expect_tx(full(stage), a.a_bytes + B_BYTES);
           tma_load(sA + stage * A_BYTES, &tm_a, kt * kBK, c1, c2,
                    full(stage));
-          tma_load(sB + stage * B_BYTES, &tm_b, kt * kBK, n * BN, 0,
+          tma_load(sB + stage * B_BYTES, &tm_b, kt * kBK, n * BN, expert,
                    full(stage));
           if (++stage == STAGES) {
             stage = 0;
@@ -664,7 +688,7 @@ matmul_bn_act_wg_kernel(const __grid_constant__ CUtensorMap tm_a,
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     int stage = 0;
     uint32_t phase = 0, u = 0;
-    for (long long tile = blockIdx.x; tile < a.num_tiles; tile += gridDim.x) {
+    for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
       const int m = int(tile / a.num_n), n = int(tile % a.num_n);
       const int c1 = m * a.step1, c2 = m * a.step2;
       int prev = 0;
@@ -707,8 +731,10 @@ matmul_bn_act_wg_kernel(const __grid_constant__ CUtensorMap tm_a,
             const int col = n * BN + q * kSubN + j * 8 + 2 * t;
             float s0 = 1.f, s1 = 1.f, b0 = 0.f, b1 = 0.f;
             if (col < a.N) {            // N % 8 == 0: both or neither
-              b0 = a.bias[col];
-              b1 = a.bias[col + 1];
+              if (a.bias) {
+                b0 = a.bias[col];
+                b1 = a.bias[col + 1];
+              }
               if (a.scale) {
                 s0 = a.scale[col];
                 s1 = a.scale[col + 1];
@@ -751,6 +777,25 @@ matmul_bn_act_wg_kernel(const __grid_constant__ CUtensorMap tm_a,
     }
     if (storer) bulk_wait_all();
   }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+matmul_bn_act_wg_kernel(const __grid_constant__ CUtensorMap tm_a,
+                        const __grid_constant__ CUtensorMap tm_b,
+                        const __grid_constant__ CUtensorMap tm_r,
+                        const __grid_constant__ CUtensorMap tm_o,
+                        const WgArgs a) {
+  wg_body<BN, false>(tm_a, tm_b, tm_r, tm_o, a);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+moe_grouped_gemm_wg_kernel(const __grid_constant__ CUtensorMap tm_a,
+                           const __grid_constant__ CUtensorMap tm_b,
+                           const __grid_constant__ CUtensorMap tm_o,
+                           const WgArgs a) {
+  wg_body<BN, true>(tm_a, tm_b, tm_o, tm_o, a);
 }
 
 // ---- host side of body "wg" ------------------------------------------------
@@ -854,6 +899,19 @@ cudaError_t launch_wg(const CUtensorMap& ta, const CUtensorMap& tb,
   return cudaGetLastError();
 }
 
+template <int BN>
+cudaError_t launch_grouped(const CUtensorMap& ta, const CUtensorMap& tb,
+                           const CUtensorMap& to, const WgArgs& a,
+                           unsigned grid, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      moe_grouped_gemm_wg_kernel<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem_bytes(BN));
+  if (attr != cudaSuccess) return attr;
+  moe_grouped_gemm_wg_kernel<BN>
+      <<<grid, kWgThreads, wg_smem_bytes(BN), st>>>(ta, tb, to, a);
+  return cudaGetLastError();
+}
+
 constexpr int kPlanMismatch = -1;    // the caller's plan is not this one
 constexpr int kTensorMapFailed = -2;  // the driver refused a tensor map
 constexpr int kBodyMma = 0, kBodyWg = 1;
@@ -916,6 +974,8 @@ extern "C" int clipbert_matmul_bn_act(
     if (!ok) return kTensorMapFailed;
     WgArgs a{static_cast<const float*>(scale),
              static_cast<const float*>(bias),
+             nullptr,
+             nullptr,
              tiles,
              N,
              (K + kBK - 1) / kBK,
@@ -962,4 +1022,62 @@ extern "C" int clipbert_matmul_bn_act(
       return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped expert product (ops/moe.py::_grouped_launch): x (R, K) bf16
+// rows sorted by expert, each expert's run padded to a multiple of kBM
+// rows (R a multiple of kBM: the host's bound); w (E, N, K) bf16, the
+// experts' weights stacked; tile_expert (R / kBM,) int32, row tile m's
+// expert; live_m: one int32, the row tiles that hold rows (the rest are
+// skipped); out (R, N) bf16. The caller's plan (tile_n, grid, shared bytes,
+// stages) must be the one derived here: wg_tile_n's BN at (R, K, N), one
+// block per SM at most. Returns the launch's cudaError_t (0 on success),
+// kPlanMismatch or kTensorMapFailed; does not synchronise.
+extern "C" int clipbert_moe_grouped_gemm(
+    const void* x, const void* w, const void* tile_expert,
+    const void* live_m, void* out, long long R, int K, int N, int E,
+    int tile_n, int n_sms, long long grid, int smem_bytes, int stages,
+    void* stream) {
+  if (R < 0 || R % kBM != 0 || K <= 0 || N <= 0 || E < 1 || n_sms < 1)
+    return cudaErrorInvalidValue;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (!wg_ok(1, R, K, N, 1, 1, 1, 1, aligned)) return kPlanMismatch;
+  const int num_n = (N + tile_n - 1) / tile_n;
+  const long long tiles = (R / kBM) * num_n;
+  const long long blocks = tiles < n_sms ? tiles : n_sms;
+  if (tile_n != wg_tile_n(R, K, N, n_sms) || grid != blocks ||
+      smem_bytes != wg_smem_bytes(tile_n) || stages != wg_stages(tile_n))
+    return kPlanMismatch;
+  if (R == 0) return cudaSuccess;
+  const uint64_t k2 = uint64_t(K) * 2, n2 = uint64_t(N) * 2;
+  CUtensorMap ta, tb, to;
+  const bool ok =
+      encode_map(&ta, x, K, R, 1, k2, k2 * R, kBM, 1) &&
+      encode_map(&tb, w, K, N, E, k2, k2 * N, tile_n, 1) &&
+      encode_map(&to, out, N, R, 1, n2, n2 * R, kBM, 1);
+  if (!ok) return kTensorMapFailed;
+  WgArgs a{nullptr,
+           nullptr,
+           static_cast<const int*>(tile_expert),
+           static_cast<const int*>(live_m),
+           tiles,
+           N,
+           (K + kBK - 1) / kBK,
+           num_n,
+           0,
+           0,
+           kBM,
+           0,
+           uint32_t(kBK * kBM * 2)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tile_n) {
+    case 64:
+      return launch_grouped<64>(ta, tb, to, a, unsigned(blocks), st);
+    case 128:
+      return launch_grouped<128>(ta, tb, to, a, unsigned(blocks), st);
+    default:
+      return launch_grouped<256>(ta, tb, to, a, unsigned(blocks), st);
+  }
 }

@@ -10,6 +10,16 @@ MultipleChoice (:387-451), Regression (:454-507) and VideoTextRetrieval
 ``cnn.grid_encoder``, ``transformer.bert.*``, ``transformer.classifier`` /
 ``regressor`` / ``cls``). The per-element losses mirror the reference's
 reduction="none".
+
+``ModelConfig.joint_encoder == "deepseek_v3"`` swaps the joint encoder for
+a DeepSeek-V3 decoder (models/deepseek_v3.py; Kimi-VL-A3B's language
+model) under ``transformer.language_model.model.*``, beside ClipBERT's
+visual embedding (``transformer.visual_embeddings``) and heads: the
+input is [visual tokens | text word embeddings] with RoPE positions
+0..S-1 under the causal mask, and the pooled vector is the last valid
+text token after the final RMSNorm (the LM has no CLS token and no
+pooler). Eval only: the training step and the int8 scoring path refuse
+it.
 """
 
 from __future__ import annotations
@@ -24,11 +34,20 @@ from torch import nn
 from clipbert_tpu_torch.core.config import ModelConfig
 from clipbert_tpu_torch.core.mesh import Mesh
 from clipbert_tpu_torch.core.rng import RngGen
-from clipbert_tpu_torch.models import bert, resnet, visual_embed
+from clipbert_tpu_torch.models import bert, deepseek_v3, resnet, visual_embed
 from clipbert_tpu_torch.ops.dropout import dropout
 from clipbert_tpu_torch.ops.linear import linear, quantize_dense
 
 HEAD_TYPES = ("pretrain", "seq_cls", "multi_choice", "regression", "retrieval")
+JOINT_ENCODERS = ("bert", "deepseek_v3")
+
+
+def is_lm(cfg: ModelConfig) -> bool:
+    """Whether the joint encoder is the DeepSeek-V3 decoder."""
+    if cfg.joint_encoder not in JOINT_ENCODERS:
+        raise ValueError(f"unknown joint_encoder {cfg.joint_encoder!r}; "
+                         f"encoders: {JOINT_ENCODERS}")
+    return cfg.joint_encoder == "deepseek_v3"
 
 
 class BertBase(nn.Module):
@@ -79,7 +98,18 @@ class Transformer(nn.Module):
         if head_type not in HEAD_TYPES:
             raise ValueError(f"unknown head type {head_type!r}; heads: "
                              f"{HEAD_TYPES}")
-        self.bert = BertBase(cfg)
+        if is_lm(cfg):
+            if head_type == "pretrain":
+                raise ValueError("the deepseek_v3 joint encoder has no MLM "
+                                 "or ITM pretraining heads")
+            self.language_model = deepseek_v3.LanguageModel(cfg)
+            # the visual embedding's sequence-position table is unused in
+            # its forward; the decoder places tokens by RoPE, so it holds
+            # no rows here
+            self.visual_embeddings = visual_embed.VisualEmbeddings(
+                cfg.replace(max_position_embeddings=0))
+        else:
+            self.bert = BertBase(cfg)
         if head_type == "pretrain":
             self.cls = bert.PretrainingHeads(cfg)
         elif head_type in ("seq_cls", "retrieval"):
@@ -116,7 +146,8 @@ def _init_weights(model: ClipBert, cfg: ModelConfig,
     for m in model.modules():
         if isinstance(m, nn.Linear):
             m.weight.normal_(0.0, std, generator=g)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, std, generator=g)
         elif isinstance(m, nn.LayerNorm):
@@ -136,17 +167,34 @@ def _init_weights(model: ClipBert, cfg: ModelConfig,
             m.var.fill_(1.0)
         elif isinstance(m, bert._LMPrediction):
             m.bias.zero_()
+        elif isinstance(m, deepseek_v3.RMSNorm):
+            m.weight.fill_(1.0)
+        elif isinstance(m, deepseek_v3.Gate):
+            m.weight.normal_(0.0, std, generator=g)
+            m.e_score_correction_bias.zero_()
+        elif isinstance(m, deepseek_v3.Experts):
+            m.gate_up_proj.normal_(0.0, std, generator=g)
+            m.down_proj.normal_(0.0, std, generator=g)
+    if is_lm(cfg):
+        return
     emb = model.transformer.bert.embeddings.word_embeddings.weight
     emb[cfg.pad_token_id].zero_()
 
 
 def empty_clipbert(cfg: ModelConfig, head_type: str = "retrieval", *,
-                   device: torch.device | str) -> ClipBert:
+                   device: torch.device | str,
+                   lm_dtype: Optional[torch.dtype] = None) -> ClipBert:
     """The model allocated on ``device`` with uninitialized tensors, to be
     filled by a checkpoint (ckpt/from_jax.py). Built on the meta device,
-    so no global RNG is drawn and nothing is initialized twice."""
+    so no global RNG is drawn and nothing is initialized twice.
+    ``lm_dtype``: the deepseek_v3 decoder's parameters in that dtype (its
+    checkpoint's bf16; deepseek_v3.cast_params), allocated so; the rest
+    stays fp32."""
     with torch.device("meta"):
         model = ClipBert(cfg, head_type)
+        if lm_dtype is not None and is_lm(cfg):
+            deepseek_v3.cast_params(model.transformer.language_model,
+                                    lm_dtype)
     return model.to_empty(device=device)
 
 
@@ -202,6 +250,32 @@ def base_forward(p: BertBase, cfg: ModelConfig,
     return hidden, bert.pooler(p.pooler, hidden)
 
 
+def lm_base_forward(tp: Transformer, cfg: ModelConfig,
+                    text_input_ids: torch.Tensor,      # (B, Lt)
+                    text_input_mask: torch.Tensor,     # (B, Lt)
+                    visual_tokens_grid: torch.Tensor,  # (B, T, H, W, D)
+                    compute_dtype=torch.bfloat16,
+                    fused_attn: bool = False) -> torch.Tensor:
+    """The deepseek_v3 joint encoder's pooled (B, D): [ClipBERT's visual
+    tokens | the text's word embeddings], the decoder under the causal
+    mask with the padded text keys masked as BERT masks them ((1 - mask)
+    * -10000), then the final RMSNorm of each sequence's last valid text
+    token."""
+    lm = tp.language_model
+    vis = visual_embed.visual_embeddings(
+        tp.visual_embeddings, visual_tokens_grid.to(compute_dtype), cfg)
+    txt = deepseek_v3.embed_tokens(lm, text_input_ids, compute_dtype)
+    B, Lv = vis.shape[:2]
+    mask = torch.cat([torch.ones((B, Lv), dtype=torch.float32,
+                                 device=vis.device),
+                      text_input_mask.float()], dim=1)
+    key_bias = bert.extended_attention_mask(mask)[:, 0, 0, :]
+    hidden = deepseek_v3.decoder(lm, torch.cat([vis, txt], dim=1), key_bias,
+                                 cfg, fused_attn=fused_attn)
+    last = Lv + text_input_mask.long().sum(dim=1) - 1
+    return deepseek_v3.last_token_pooled(lm, hidden, last, cfg)
+
+
 def mlp_head(p: MLPHead, pooled: torch.Tensor) -> torch.Tensor:
     """Linear -> ReLU -> Linear, fp32 logits (dropout is train-only)."""
     return linear(torch.relu(linear(pooled, p.fc1)), p.fc2).float()
@@ -235,7 +309,11 @@ def quantize_scoring_params(model: ClipBert) -> ClipBert:
     ops/linear.py::QuantLinear, which ops.linear.linear and the merged QKV
     of ops.attention dispatch on. Embeddings, LayerNorms, the CNN, the
     regressor and the tied MLM decoder stay floating point. Training and
-    the parity oracles never call this."""
+    the parity oracles never call this. The deepseek_v3 joint encoder has
+    no int8 path: it raises."""
+    if hasattr(model.transformer, "language_model"):
+        raise ValueError("int8 scoring covers the BERT joint encoder only, "
+                         "not deepseek_v3")
     bert_p = model.transformer.bert
     for lp in bert_p.encoder.layers:
         sa = lp.attention.self
@@ -298,6 +376,16 @@ def clipbert_forward(model: ClipBert, cfg: ModelConfig,
                                       compute_dtype, use_kernels, remat)
     visual_features = repeat_for_texts(visual_features, group_size)
     tp = model.transformer
+    if is_lm(cfg):
+        if train or mesh is not None or head_type in ("pretrain",
+                                                       "regression"):
+            raise ValueError("the deepseek_v3 joint encoder runs eval "
+                             "forwards of the MLP heads on one device only")
+        pooled = lm_base_forward(tp, cfg, batch["text_input_ids"],
+                                 batch["text_input_mask"], visual_features,
+                                 compute_dtype, fused_attn=fused_attn)
+        return {"logits": mlp_head(tp.classifier, pooled),
+                "pooled_output": pooled}
     hidden, pooled = base_forward(tp.bert, cfg, batch["text_input_ids"],
                                   batch["text_input_mask"], visual_features,
                                   compute_dtype, fused_attn=fused_attn,

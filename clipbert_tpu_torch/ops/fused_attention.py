@@ -24,6 +24,13 @@ at most ``TC_BLOCK_WARPS`` warps (:func:`_tc_split`; two blocks past S =
 memory, 64 * tiles * (dh + 9) bytes (51,392 at S = 176, dh = 64): two or
 three blocks share an SM where one block of 11 warps would sit alone.
 
+Latent attention (models/deepseek_v3.py, DeepSeek-V3's MLA) passes q and
+k 192 wide (``MLA_QK_DIM``: 128 + 64 RoPE dims), v 128 wide
+(``MLA_V_DIM``) and ``causal=True``: the tc body at those widths, each
+warp skipping the key tiles past its own query tile. The tc body takes
+dk == dv up to 128 (not causal) or that one pair; the v2 body dk == dv,
+not causal.
+
 Routing: a CPU tensor takes :func:`fused_attention_reference`; a CUDA
 tensor launches the kernel or raises. Nothing falls back.
 """
@@ -52,6 +59,8 @@ MAX_SEQ = 640
 MAX_HEAD_DIM = 128
 TC_MAX_SEQ = 176        # csrc/fused_attention.cu kTcMaxSeq: S in registers
 TC_BLOCK_WARPS = 6      # csrc/fused_attention.cu kTcBlockWarps
+MLA_QK_DIM = 192        # csrc/fused_attention.cu kMlaQkDim, kMlaVDim
+MLA_V_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BODY_CODES = {"v2": 0, "tc": 1}
 _PLAN_MISMATCH = -1     # csrc/fused_attention.cu kPlanMismatch
@@ -74,24 +83,38 @@ class Plan(NamedTuple):
     vec: bool
 
 
+def _tc_dims_ok(dh: int, dv: int, causal: bool) -> bool:
+    """The tc body's head widths (csrc tc_dims_ok)."""
+    if (dh, dv) == (MLA_QK_DIM, MLA_V_DIM):
+        return True
+    return dh == dv and dh % 16 == 0 and dh <= MAX_HEAD_DIM and not causal
+
+
 def _plan(B: int, S: int, H: int, dh: int, dtype: torch.dtype,
-          aligned: bool, body: Optional[str] = None) -> Plan:
+          aligned: bool, body: Optional[str] = None,
+          dv: Optional[int] = None, causal: bool = False) -> Plan:
     """The launch the C entry point makes for these operands (it derives
-    the same plan and refuses a different one). ``body`` forces a body, for
+    the same plan and refuses a different one). ``dh`` is q's and k's head
+    width, ``dv`` v's (``dh`` where None). ``body`` forces a body, for
     timing one against the other; nothing on the main path passes it."""
-    tc_ok = dtype == torch.bfloat16 and dh % 16 == 0 and S <= TC_MAX_SEQ
+    dv = dh if dv is None else dv
+    tc_ok = (dtype == torch.bfloat16 and S <= TC_MAX_SEQ
+             and _tc_dims_ok(dh, dv, causal))
+    v2_ok = dh == dv and dh <= MAX_HEAD_DIM and not causal
     if body is None:
         body = "tc" if tc_ok else "v2"
-    elif body not in _BODY_CODES or (body == "tc" and not tc_ok):
-        raise ValueError(f"no {body!r} body for {dtype} at S={S}, dh={dh}")
+    if body not in _BODY_CODES or (body == "tc" and not tc_ok) or (
+            body == "v2" and not v2_ok):
+        raise ValueError(f"no {body!r} body for {dtype} at S={S}, dh={dh}, "
+                         f"dv={dv}, causal={causal}")
     if body == "tc":
         # one warp per 16 query rows; a (batch item, head)'s query tiles
         # split over blocks of at most TC_BLOCK_WARPS warps, each block
-        # with all its K and V as bf16 rows of dh + 8 elements and the key
-        # bias in fp32, padded to 16 * tiles keys
+        # with all its K and V as bf16 rows of dh + 8 and dv + 8 elements
+        # and the key bias in fp32, padded to 16 * tiles keys
         tiles, splits, warps = _tc_split(S)
         return Plan("tc", B * H * splits, warps,
-                    16 * tiles * (2 * (dh + 8) * 2 + 4), aligned)
+                    16 * tiles * (2 * (dh + dv + 16) + 4), aligned)
     # v2: R query rows per warp (the whole sequence in one tile where its
     # fp32 score rows fit their budget), then the largest key chunk of fp32
     # K/V rows (dh + 4 floats) beside the tile's q and score rows
@@ -131,11 +154,17 @@ def _aligned16(*ts: torch.Tensor) -> bool:
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, key_bias: torch.Tensor,
-                              scale: float) -> torch.Tensor:
-    """The plain version, with the kernel's casts: q/k/v (B, S, H, dh),
-    key_bias (B, S) additive per key; returns (B, S, H, dh) in q.dtype."""
+                              scale: float,
+                              causal: bool = False) -> torch.Tensor:
+    """The plain version, with the kernel's casts: q/k (B, S, H, dh), v
+    (B, S, H, dv), key_bias (B, S) additive per key, ``causal`` masking
+    key j > query i; returns (B, S, H, dv) in q.dtype."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     s = s * scale + key_bias.float()[:, None, None, :]
+    if causal:
+        S = q.shape[1]
+        future = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(future, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
@@ -145,7 +174,7 @@ def _check(q, k, v, key_bias) -> None:
     if q.dim() != 4:
         raise ValueError(f"q must be (B, S, H, dh), got {tuple(q.shape)}")
     B, S, H, dh = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
+    if k.shape != q.shape or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"q/k/v shapes differ: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     if tuple(key_bias.shape) != (B, S):
@@ -156,9 +185,12 @@ def _check(q, k, v, key_bias) -> None:
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     if not 1 <= S <= MAX_SEQ:
         raise ValueError(f"sequence length {S} outside 1..{MAX_SEQ}")
-    if dh % 8 or not 8 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} must be a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}")
+    dv = v.shape[3]
+    if (dh, dv) != (MLA_QK_DIM, MLA_V_DIM) and (
+            dh != dv or dh % 8 or not 8 <= dh <= MAX_HEAD_DIM):
+        raise ValueError(f"head dims {dh}/{dv} must be equal multiples of 8 "
+                         f"up to {MAX_HEAD_DIM}, or "
+                         f"{MLA_QK_DIM}/{MLA_V_DIM}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q/k/v head dimension must be contiguous")
     devices = {t.device for t in (q, k, v, key_bias)}
@@ -167,21 +199,24 @@ def _check(q, k, v, key_bias) -> None:
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    key_bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale + key_bias) v.
+                    key_bias: torch.Tensor, scale: float,
+                    causal: bool = False) -> torch.Tensor:
+    """softmax(q k^T * scale + key_bias [+ causal mask]) v.
 
-    q/k/v: (B, S, H, dh) float32 or bfloat16, last dimension contiguous,
-    any other strides (e.g. slices of one merged QKV tensor). key_bias:
+    q/k: (B, S, H, dh), v: (B, S, H, dv), float32 or bfloat16, last
+    dimension contiguous, any other strides (e.g. slices of one merged QKV
+    tensor); dv == dh, or (dh, dv) = (MLA_QK_DIM, MLA_V_DIM). key_bias:
     (B, S) additive bias per KEY position (HF's (1-mask)*-10000), cast to
-    fp32. Returns a new contiguous (B, S, H, dh) tensor in q.dtype.
+    fp32. ``causal`` also masks every key after the query. Returns a new
+    contiguous (B, S, H, dv) tensor in q.dtype.
     """
     _check(q, k, v, key_bias)
     if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, key_bias, scale)
+        return fused_attention_reference(q, k, v, key_bias, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda, not "
                          f"{q.device}")
-    return _launch(q, k, v, key_bias, scale)
+    return _launch(q, k, v, key_bias, scale, causal=causal)
 
 
 def fused_attention_shard_heads(q: torch.Tensor, k: torch.Tensor,
@@ -219,9 +254,9 @@ def fused_attention_shard_heads(q: torch.Tensor, k: torch.Tensor,
 
 
 # clipbert_fused_attention's parameters (csrc/fused_attention.cu): q, k, v,
-# key_bias, out; dtype, body, B, S, H, dh; the 9 strides; scale; the plan's
-# blocks, threads, shared-memory bytes and vec; the stream
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+# key_bias, out; dtype, body, B, S, H, dh, dv, causal; the 9 strides;
+# scale; the plan's blocks, threads, shared-memory bytes and vec; the stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_longlong]
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
@@ -236,21 +271,23 @@ def _kernel():
 
 
 def _launch(q, k, v, key_bias, scale: float,
-            body: Optional[str] = None) -> torch.Tensor:
+            body: Optional[str] = None, causal: bool = False) -> torch.Tensor:
     """Launch the kernel on CUDA operands that passed :func:`_check`;
     ``body`` is :func:`_plan`'s, for timing the bodies in turns."""
     global LAUNCHES, TC_LAUNCHES
     refuse_autograd("fused_attention", q, k, v, key_bias)
     B, S, H, dh = q.shape
-    plan = _plan(B, S, H, dh, q.dtype, _aligned16(q, k, v), body)
+    dv = v.shape[3]
+    plan = _plan(B, S, H, dh, q.dtype, _aligned16(q, k, v), body, dv, causal)
     bias = key_bias.to(torch.float32).contiguous()
-    out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, H, dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        bias.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-                       _BODY_CODES[plan.body], B, S, H, dh, *strides,
+                       _BODY_CODES[plan.body], B, S, H, dh, dv, int(causal),
+                       *strides,
                        float(scale), plan.grid, 32 * plan.warps,
                        plan.smem_bytes, int(plan.vec), stream)
     if rc == _PLAN_MISMATCH:

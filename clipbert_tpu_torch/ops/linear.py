@@ -9,14 +9,15 @@ accumulator instead. CPU builds have no such overload, so there the bf16
 operands are widened to fp32 first, which gives the same numbers: a product
 of two bf16 values is exact in fp32.
 
-:func:`dense` on a bf16 CUDA input with a bias, outside autograd (every
-eval, scoring and serving forward), is one launch of the hand-written GEMM
-(ops/matmul_bn_act.py, body wg): the fp32 accumulators get the fp32 bias
-and one rounding to bf16 in its epilogue, so the fp32 (R, N) product is
-never written. That is where XLA puts the JAX package's bias add and cast.
-Every other input takes :func:`dense_reference`, the unfused formula:
-the CPU (the numbers the JAX parity tests hold), fp32, no bias, and the
-train steps' forward under autograd (the kernel has no backward).
+:func:`dense` on a bf16 CUDA input outside autograd (every eval, scoring
+and serving forward), with or without a bias, is one launch of the
+hand-written GEMM (ops/matmul_bn_act.py, body wg): the fp32 accumulators
+get the fp32 bias, where there is one, and one rounding to bf16 in its
+epilogue, so the fp32 (R, N) product is never written. That is where XLA
+puts the JAX package's bias add and cast. Every other input takes
+:func:`dense_reference`, the unfused formula: the CPU (the numbers the JAX
+parity tests hold), fp32, and the train steps' forward under autograd (the
+kernel has no backward).
 
 int8 path (opt-in, inference scoring only): :func:`quantize_dense` turns
 an ``nn.Linear`` into a :class:`QuantLinear` (symmetric per-output-channel
@@ -102,8 +103,10 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def routes_to_kernel(on_cuda: bool, dtype: torch.dtype, has_bias: bool,
                      tracked: bool) -> bool:
     """Whether :func:`dense` launches matmul_bn_act's kernel: a bf16 CUDA
-    input with a bias that autograd does not track."""
-    return on_cuda and dtype == torch.bfloat16 and has_bias and not tracked
+    input that autograd does not track. ``has_bias`` has no say: the
+    kernel's epilogue adds a bias where there is one and nothing where
+    there is none (the latent-attention and expert products)."""
+    return on_cuda and dtype == torch.bfloat16 and not tracked
 
 
 def dense_reference(x: torch.Tensor, weight: torch.Tensor,

@@ -25,6 +25,7 @@ reads only the kept pixels, which saves one pass over the input.
 
 ``scale`` may be None: the frozen-BN scale was folded into the weight
 (models/resnet.py::fold_bn_scales), and the epilogue multiplies by 1.
+``bias`` may be None (a bias-free dense product): the epilogue adds 0.
 
 ``ops/linear.py::dense`` runs BERT's and the heads' bf16 products through
 :func:`matmul_bn_act` (``scale`` None, no residual, no ReLU): the epilogue
@@ -180,7 +181,8 @@ def _n_sms(device_index: int) -> int:
 
 
 def matmul_bn_act_reference(x: torch.Tensor, w: torch.Tensor,
-                            scale: Optional[torch.Tensor], bias: torch.Tensor,
+                            scale: Optional[torch.Tensor],
+                            bias: Optional[torch.Tensor],
                             residual: Optional[torch.Tensor] = None,
                             relu: bool = True) -> torch.Tensor:
     """The plain version, with the kernel's casts: x (R, K), w (K, N) (cast
@@ -189,7 +191,8 @@ def matmul_bn_act_reference(x: torch.Tensor, w: torch.Tensor,
     acc = x.float() @ w.to(x.dtype).float()
     if scale is not None:
         acc = acc * scale.float()
-    acc = acc + bias.float()
+    if bias is not None:
+        acc = acc + bias.float()
     if residual is not None:
         acc = acc + residual.float()
     if relu:
@@ -200,8 +203,8 @@ def matmul_bn_act_reference(x: torch.Tensor, w: torch.Tensor,
 def _check(x, w, K, N, scale, bias, residual, rows) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if tuple(bias.shape) != (N,) or (scale is not None
-                                     and tuple(scale.shape) != (N,)):
+    if (bias is not None and tuple(bias.shape) != (N,)) or (
+            scale is not None and tuple(scale.shape) != (N,)):
         raise ValueError(f"scale/bias must be ({N},)")
     if x.shape[-1] != K:
         raise ValueError(f"x has {x.shape[-1]} input channels, w has {K}")
@@ -222,13 +225,14 @@ def _check(x, w, K, N, scale, bias, residual, rows) -> None:
 
 
 def matmul_bn_act(x: torch.Tensor, w: torch.Tensor,
-                  scale: Optional[torch.Tensor], bias: torch.Tensor,
+                  scale: Optional[torch.Tensor],
+                  bias: Optional[torch.Tensor],
                   residual: Optional[torch.Tensor] = None,
                   relu: bool = True) -> torch.Tensor:
     """act((x @ w) * scale + bias [+ residual]) with one rounding.
 
     x: (R, K) float32 or bfloat16; w: (K, N), any float dtype (cast to x's),
-    any strides; scale (or None) and bias: (N,); residual: (R, N) in x's
+    any strides; scale and bias: (N,) or None; residual: (R, N) in x's
     dtype or None. Returns a new (R, N) tensor in x.dtype.
     """
     if x.dim() != 2 or w.dim() != 2:
@@ -302,7 +306,7 @@ def _launch(x, w_nk, scale, bias, residual, relu: bool, bhw, stride: int,
     R = B * Ho * Wo
     w_nk = w_nk.to(x.dtype).contiguous()
     sc = None if scale is None else scale.to(torch.float32).contiguous()
-    b = bias.to(torch.float32).contiguous()
+    b = None if bias is None else bias.to(torch.float32).contiguous()
     res = None if residual is None else residual.contiguous()
     out = torch.empty((B, Ho, Wo, N), dtype=x.dtype, device=x.device)
     if R == 0:
@@ -314,7 +318,8 @@ def _launch(x, w_nk, scale, bias, residual, relu: bool, bhw, stride: int,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = _kernel()(x.data_ptr(), w_nk.data_ptr(),
-                       None if sc is None else sc.data_ptr(), b.data_ptr(),
+                       None if sc is None else sc.data_ptr(),
+                       None if b is None else b.data_ptr(),
                        None if res is None else res.data_ptr(),
                        out.data_ptr(), _DTYPE_CODES[x.dtype], R, K, N,
                        stride, H, W, Ho, Wo, int(relu),

@@ -196,6 +196,13 @@ def span(name: str):
     return Span(name, profiled)
 
 
+def collecting() -> bool:
+    """Whether a ``collect()`` scope is open (in any thread): where a layer
+    keeps a device-side tally only while one is (ops/moe.py's per-expert
+    row counts)."""
+    return _collecting
+
+
 def _add(acc: Dict[str, List[int]], s: Span) -> None:
     a = acc.get(s.name)
     if a is None:

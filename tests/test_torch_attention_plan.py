@@ -94,12 +94,15 @@ def test_tc_plan_matches_the_source_formulas(S, dh, splits, warps):
     assert plan == fa.Plan("tc", B * H * splits, warps,
                            64 * kt * (dh + 9), False)
     assert plan.smem_bytes <= 227 * 1024
-    # the C launcher derives the same plan before it launches
-    body = re.search(r"TcPlan plan_tc\(int S, int dh\) \{(.*?)\n\}", SRC,
-                     re.S).group(1)
+    # the C launcher derives the same plan before it launches: K and V
+    # at their own widths, 32 KT (dk + dv + 18) bytes, which is 64 KT
+    # (dh + 9) at dk = dv = dh
+    body = re.search(r"TcPlan plan_tc\(int S, int dk, int dv, int causal\) "
+                     r"\{(.*?)\n\}", SRC, re.S).group(1)
     assert "const int KT = (S + 15) / 16;" in body
-    assert ("return TcPlan{KT, dh / 16, tc_splits(KT), tc_block_threads(KT),"
-            "\n                64 * KT * (dh + 9)};" in body)
+    assert ("return TcPlan{KT, dk / 16, dv / 16, causal, tc_splits(KT),\n"
+            "                tc_block_threads(KT), 32 * KT * (dk + dv + 18)};"
+            in body)
     assert ("return (KT + kTcBlockWarps - 1) / kTcBlockWarps;" in SRC)
     assert "return 32 * ((KT + tc_splits(KT) - 1) / tc_splits(KT));" in SRC
     assert re.search(r"blocks != \(long long\)B \* H \* p\.splits \|\| "
@@ -239,3 +242,65 @@ def test_reference_matches_pallas_with_masked_tail_keys(rng_np, B, S,
     got2 = fa.fused_attention_reference(*(torch.from_numpy(a) for a in
                                           (q, k, v2, bias)), scale).numpy()
     np.testing.assert_allclose(got2, got, rtol=1e-5, atol=1e-5)
+
+
+# (B, S, H, dk, dv) of latent attention in the Kimi-VL retrieval dispatch
+# (16 captions x 8 videos x 16 clips) and in the benchmark's check sample
+MLA_PATH = [(2048, 69, 16, 192, 128), (512, 69, 16, 192, 128)]
+
+
+@pytest.mark.parametrize("B,S,H,dk,dv", MLA_PATH)
+def test_latent_attention_runs_the_tensor_core_body(B, S, H, dk, dv):
+    """q/k 192 wide (128 + 64 RoPE), v 128 wide, causal: the tc body, K
+    and V staged at their own widths, 32 * 5 * (192 + 128 + 18) = 54,080
+    bytes at S = 69, which needs the opt-in above 48 KB."""
+    q = torch.zeros(B, S, H, dk, dtype=BF16)
+    kv = torch.zeros(B, S, H, 2 * dv, dtype=BF16)
+    v = kv[..., dv:]
+    assert fa._aligned16(q, q, v)
+    plan = fa._plan(B, S, H, dk, BF16, fa._aligned16(q, q, v), dv=dv,
+                    causal=True)
+    kt = (S + 15) // 16
+    assert plan == fa.Plan("tc", B * H, kt, 32 * kt * (dk + dv + 18), True)
+    assert plan.smem_bytes == 54080 > 48 * 1024
+    assert (fa.MLA_QK_DIM, fa.MLA_V_DIM) == (_cu_int("kMlaQkDim"),
+                                             _cu_int("kMlaVDim"))
+
+
+@pytest.mark.parametrize("B,S,H,dh,smem", [
+    (8192, 69, 12, 64, 23360),     # msrvtt_ret.eval_1kcap's dispatch
+    (32, 164, 12, 64, 51392)])     # vqa.eval_b32's batch
+def test_the_benchmarked_cells_plans_are_unchanged(B, S, H, dh, smem):
+    """The plans of the two BERT cells, with dv and causal at their
+    defaults and given as they are."""
+    kt, splits, warps = fa._tc_split(S)
+    want = fa.Plan("tc", B * H * splits, warps, smem, True)
+    assert fa._plan(B, S, H, dh, BF16, True) == want
+    assert fa._plan(B, S, H, dh, BF16, True, dv=dh, causal=False) == want
+    assert smem == 64 * kt * (dh + 9)
+
+
+@pytest.mark.parametrize("dk,dv,causal,dtype", [
+    (192, 64, True, BF16), (64, 64, True, BF16), (192, 128, True, FP32),
+    (128, 64, False, BF16)])
+def test_head_widths_no_body_takes(dk, dv, causal, dtype):
+    """dk != dv outside latent attention's pair, and causal outside it or
+    in fp32: no body, so the plan raises before anything launches."""
+    with pytest.raises(ValueError):
+        fa._plan(4, 69, 2, dk, dtype, True, dv=dv, causal=causal)
+
+
+def test_causal_reference_masks_the_future():
+    """The plain version with ``causal``: row i is the softmax over keys
+    0..i alone, which the last query's full row agrees with."""
+    g = torch.Generator().manual_seed(3)
+    q, k = (torch.randn(2, 9, 2, 192, generator=g) for _ in range(2))
+    v = torch.randn(2, 9, 2, 128, generator=g)
+    bias = torch.zeros(2, 9)
+    out = fa.fused_attention(q, k, v, bias, 192 ** -0.5, causal=True)
+    for i in (0, 4, 8):
+        want = fa.fused_attention_reference(
+            q[:, i:i + 1], k[:, :i + 1], v[:, :i + 1], bias[:, :i + 1],
+            192 ** -0.5)
+        torch.testing.assert_close(out[:, i:i + 1], want, rtol=1e-6,
+                                   atol=1e-6)

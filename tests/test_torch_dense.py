@@ -69,5 +69,7 @@ def test_cpu_dense_is_the_unfused_formula(rng_np, case):
                            (True, False), (True, False))))
 def test_route_is_cuda_bf16_bias_untracked(on_cuda, dtype, has_bias,
                                            tracked):
-    want = on_cuda and dtype == BF16 and has_bias and not tracked
+    # a bias no longer has a say: the kernel's epilogue adds one where
+    # there is one (the deepseek_v3 encoder's products have none)
+    want = on_cuda and dtype == BF16 and not tracked
     assert lin.routes_to_kernel(on_cuda, dtype, has_bias, tracked) is want

@@ -94,6 +94,19 @@ KNOWN = {
     "utils/logger.py:JsonlScalarWriter":
         "the scalar writer TensorboardLogger.create falls back to",
 }
+# the port's second joint encoder (models/deepseek_v3.py: Kimi-VL-A3B's
+# language model), selected by ModelConfig.joint_encoder and configured by
+# the published DeepSeek-V3 keys; the JAX package has no such encoder
+KNOWN.update({
+    f"core/config.py:ModelConfig.{name}":
+        "a field of the port's deepseek_v3 joint encoder"
+    for name in ("joint_encoder", "kv_lora_rank", "q_lora_rank",
+                 "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim",
+                 "n_routed_experts", "num_experts_per_tok",
+                 "n_shared_experts", "moe_intermediate_size",
+                 "first_k_dense_replace", "n_group", "topk_group",
+                 "routed_scaling_factor", "scoring_func", "topk_method",
+                 "norm_topk_prob", "rms_norm_eps", "rope_theta")})
 
 
 class _Normalize(ast.NodeTransformer):
